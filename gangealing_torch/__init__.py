@@ -1,0 +1,14 @@
+"""gangealing_torch — the PyTorch and CUDA port of gangealing_tpu.
+
+It serves the flagship ComposedSTN congeal forward on an NVIDIA H100 through
+two CUDA kernels written by hand (``csrc/``): the mipmap sampler and the
+bilinear grid sampler. On CPU tensors every op runs its plain PyTorch
+version, which the tests hold against the JAX package.
+
+The layouts at the public functions are the JAX package's: images NCHW,
+sampling grids (N, Ho, Wo, 2) with x then y, flows (N, H, W, 2).
+"""
+
+from gangealing_torch._build import LAUNCHES, load_kernels  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels into one shared library and bind it.
+
+The sources in ``gangealing_torch/csrc/`` are compiled by ``nvcc`` for
+``sm_90a`` into ``build/torch_kernels/`` beside the package, at first use.
+The library's file name carries a hash of the sources and the flags, so a
+source change builds a new library. It has a plain C interface and is
+loaded with ``ctypes``: every pointer and the stream are ``c_void_p``.
+
+``LAUNCHES`` counts the kernel launches of each wrapper. It is the only
+state at module level besides the cached library handle.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+# -fmad=false: no multiply-add contraction, so each step rounds as the plain
+# torch version rounds it and kernel and plain version agree to the last bits.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+LAUNCHES = {"grid_sample": 0, "mipmap_sample": 0}
+PADDING_CODES = {"border": 0, "reflection": 1, "zeros": 2}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> Path:
+    """The library file for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libgangealing_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build(lib_path: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    # Build to a temporary name and rename, so a concurrent or interrupted
+    # build never leaves a half-written library under the final name.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+@functools.cache
+def load_kernels() -> ctypes.CDLL:
+    """Build the library if needed, load it, and declare its entry points."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        _build(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gg_grid_sample_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.gg_grid_sample_fwd.restype = i32
+    lib.gg_mipmap_sample_fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.gg_mipmap_sample_fwd.restype = i32
+    return lib
+
+
+def check_operand(name: str, t: torch.Tensor, ndim: int,
+                  device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: a contiguous f32 CUDA
+    tensor of ``ndim`` dimensions on ``device``."""
+    if t.device.type != "cuda" or t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def padding_code(padding_mode: str) -> int:
+    if padding_mode not in PADDING_CODES:
+        raise ValueError(f"unknown padding_mode: {padding_mode}")
+    return PADDING_CODES[padding_mode]
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call a C entry point, raise if its launch failed, and count it."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,176 @@
+"""The port's two CUDA kernels and their wrappers.
+
+On the CPU: the port imports no JAX; the wrappers take their plain versions
+for CPU tensors, launch nothing and refuse to pass a CPU tensor to a kernel;
+and the plain versions match the TPU kernels they stand for, run in
+interpret mode as the JAX package's own tests run them (atol 1e-5, f32).
+
+On the card (marker ``cuda``, skipped without one): each kernel against its
+plain version on the same CUDA tensors (atol 1e-5), and the launch counts:
+
+    python -m pytest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
+"""
+
+import subprocess
+import sys
+from importlib import import_module
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from gangealing_torch import LAUNCHES
+from gangealing_torch.ops import grid_sample as tgs
+from gangealing_torch.ops import mipmap as tmm
+
+jmm = import_module("gangealing_tpu.ops.mipmap")
+jpgs = import_module("gangealing_tpu.ops.pallas_grid_sample")
+
+PADDINGS = ["border", "reflection", "zeros"]
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _inputs(seed, N=2, C=3, H=32, out=16):
+    """Image plus an affine grid from a zoom-in to a zoom-out by 6 with
+    rotation, reaching outside the image, with levels spanning [0, 2.5]."""
+    rng = np.random.RandomState(seed)
+    img = rng.randn(N, C, H, H).astype(np.float32)
+    s = np.geomspace(0.4, 6.0, N)
+    a = rng.uniform(-np.pi, np.pi, N)
+    th = np.stack([np.stack([s * np.cos(a), -s * np.sin(a), 0.2 + 0 * s], 1),
+                   np.stack([s * np.sin(a), s * np.cos(a), -0.1 + 0 * s], 1)],
+                  1).astype(np.float32)
+    grid = tgs.affine_grid(torch.from_numpy(th), (N, C, out, out)).numpy()
+    return img, grid
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without loading JAX, and so does
+    load_stn's own import of the checkpoint reader and the model zoo (here on
+    a path that does not exist, which it reports as such)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
+            ".__init__", "")
+        for p in (REPO / "gangealing_torch").rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "from gangealing_torch.apps.common import load_stn\n"
+            "try:\n"
+            "    load_stn('no/such/stn.pt')\n"
+            "    raise SystemExit('load_stn loaded a missing file')\n"
+            "except FileNotFoundError as e:\n"
+            "    assert 'no/such/stn.pt' in str(e), e\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(modules) >= 10
+
+
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_wrappers_take_plain_version_on_cpu(padding_mode):
+    img, grid = _inputs(0)
+    x, g = torch.from_numpy(img), torch.from_numpy(grid)
+    before = dict(LAUNCHES)
+    out = tgs.grid_sample_auto(x, g, padding_mode=padding_mode)
+    assert torch.equal(out, tgs.grid_sample(x, g, padding_mode=padding_mode))
+    out = tmm.mipmap_warp(x, g, padding_mode=padding_mode)
+    levels = tmm.mipmap_levels(g, 32, 32, 3.5)
+    ref = tmm._mipmap_warp_fold(x, g, 4, levels, padding_mode)
+    assert torch.equal(out, ref)
+    assert LAUNCHES == before
+
+
+def test_kernel_entry_points_refuse_cpu_tensors():
+    img, grid = _inputs(0)
+    x, g = torch.from_numpy(img), torch.from_numpy(grid)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="must be on"):
+        tgs.grid_sample_cuda(x, g)
+    stack = torch.stack(tmm._build_stack(x, 4), dim=1)
+    with pytest.raises(ValueError, match="must be on"):
+        tmm.mipmap_sample(stack, g, g[..., 0].contiguous())
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_plain_mipmap_matches_tpu_kernel_interpret(padding_mode):
+    """Plain mipmap_warp == the banded Pallas kernel (K1) in interpret mode."""
+    img, grid = _inputs(1)
+    levels = jmm.mipmap_levels(jnp.asarray(grid), 32, 32, 3.5)
+    ref = jmm._mipmap_warp_banded(jnp.asarray(img), jnp.asarray(grid), 4,
+                                  levels, padding_mode, precision="f32",
+                                  interpret=True)
+    out = tmm.mipmap_warp(torch.from_numpy(img), torch.from_numpy(grid),
+                          padding_mode=padding_mode)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_plain_grid_sample_matches_tpu_kernel_interpret(padding_mode):
+    """Plain grid_sample == the Pallas grid-sample kernel (K2) in interpret
+    mode."""
+    img, grid = _inputs(2)
+    ref = jpgs.grid_sample_mxu(jnp.asarray(img), jnp.asarray(grid),
+                               padding_mode=padding_mode, precision="f32",
+                               point_block=128, interpret=True)
+    out = tgs.grid_sample(torch.from_numpy(img), torch.from_numpy(grid),
+                          padding_mode=padding_mode)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_grid_sample_kernel_matches_plain(cuda, padding_mode):
+    img, grid = _inputs(3, N=3, C=5, H=40, out=24)
+    x, g = torch.from_numpy(img).to(cuda), torch.from_numpy(grid).to(cuda)
+    before = LAUNCHES["grid_sample"]
+    out = tgs.grid_sample_auto(x, g, padding_mode=padding_mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grid_sample"] == before + 1
+    ref = tgs.grid_sample(x, g, padding_mode=padding_mode)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_mipmap_kernel_matches_plain(cuda, padding_mode):
+    img, grid = _inputs(4, N=3, C=5, H=64, out=32)
+    x, g = torch.from_numpy(img).to(cuda), torch.from_numpy(grid).to(cuda)
+    before = LAUNCHES["mipmap_sample"]
+    out = tmm.mipmap_warp(x, g, padding_mode=padding_mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES["mipmap_sample"] == before + 1
+    levels = tmm.mipmap_levels(g, 64, 64, 3.5)
+    ref = tmm._mipmap_warp_fold(x, g, 4, levels, padding_mode)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 3, 8, 8, device=cuda)
+    g = torch.zeros(1, 4, 4, 2, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tgs.grid_sample_cuda(x.double(), g)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgs.grid_sample_cuda(x, g.transpose(1, 2))
+    with pytest.raises(ValueError, match="padding_mode"):
+        tgs.grid_sample_cuda(x, g, "wrap")
+    stack = torch.zeros(1, 1, 3, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="2 levels"):
+        tmm.mipmap_sample(stack, g, torch.zeros(1, 4, 4, device=cuda))
