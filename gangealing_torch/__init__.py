@@ -1,8 +1,9 @@
 """gangealing_torch — the PyTorch and CUDA port of gangealing_tpu.
 
-It serves the flagship ComposedSTN congeal forward on an NVIDIA H100 through
-two CUDA kernels written by hand (``csrc/``): the mipmap sampler and the
-bilinear grid sampler. On CPU tensors every op runs its plain PyTorch
+It serves the flagship ComposedSTN congeal forward and trains GANgealing
+(``python -m gangealing_torch.cli.train``) on an NVIDIA H100, through CUDA
+kernels written by hand (``csrc/``): the mipmap and bilinear samplers, their
+forward and backward. On CPU tensors every op runs its plain PyTorch
 version, which the tests hold against the JAX package.
 
 The layouts at the public functions are the JAX package's: images NCHW,

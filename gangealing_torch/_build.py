@@ -29,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
 
-LAUNCHES = {"grid_sample": 0, "mipmap_sample": 0}
+LAUNCHES = {"grid_sample": 0, "grid_sample_dgrid": 0, "grid_sample_dimg": 0,
+            "mipmap_sample": 0, "mipmap_sample_dcoords": 0,
+            "mipmap_sample_dstack": 0}
 PADDING_CODES = {"border": 0, "reflection": 1, "zeros": 2}
 
 
@@ -83,8 +85,16 @@ def load_kernels() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.gg_grid_sample_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
     lib.gg_grid_sample_fwd.restype = i32
+    lib.gg_grid_sample_dgrid.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.gg_grid_sample_dgrid.restype = i32
+    lib.gg_grid_sample_dimg.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+    lib.gg_grid_sample_dimg.restype = i32
     lib.gg_mipmap_sample_fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.gg_mipmap_sample_fwd.restype = i32
+    lib.gg_mipmap_sample_dcoords.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+    lib.gg_mipmap_sample_dcoords.restype = i32
+    lib.gg_mipmap_sample_dstack.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.gg_mipmap_sample_dstack.restype = i32
     return lib
 
 

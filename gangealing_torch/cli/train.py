@@ -1,0 +1,156 @@
+"""Training CLI on one card (port of gangealing_tpu/cli/train.py).
+
+    python -m gangealing_torch.cli.train --exp-name cats --ckpt cat.pt \
+        --load_G_only --padding_mode border --batch 40 --vis_every 0 [...]
+
+The flags are the JAX package's (``base_training_argparse``); ``--batch``
+is the batch of the one card, which is the current CUDA device when one is
+visible and the CPU otherwise. What later slices
+port is refused with a message that names the slice: the clustered loss
+(``--num_heads > 1``, ``--flips``), visuals (``--vis_every > 0``), bfloat16,
+an explicit ``--scan_k > 1`` and ``--profile_dir``.
+"""
+
+import os
+
+import torch
+
+from gangealing_torch.models.latent_learner import (
+    LatentLearner, LatentLearnerConfig)
+from gangealing_torch.models.lpips import (
+    LPIPS, import_torchvision_vgg, make_perceptual_loss)
+from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
+from gangealing_torch.models.stylegan2 import Generator, GeneratorConfig
+from gangealing_torch.train.checkpoint import (
+    find_model, latest_checkpoint, load_checkpoint, module_state,
+    parse_start_iter, resume)
+from gangealing_torch.train.loop import cold_start_ll, train_gangealing
+from gangealing_torch.train.state import TrainConfig, TrainState
+from gangealing_tpu.cli.args import base_training_argparse
+
+
+def check_supported(parser, args):
+    deferred = [
+        (args.num_heads > 1, "--num_heads > 1 (the clustered loss)",
+         "the cluster slice"),
+        (args.flips, "--flips (the clustered loss)", "the cluster slice"),
+        (args.vis_every > 0, "--vis_every > 0 (training visuals)",
+         "the visuals slice; pass --vis_every 0"),
+        (args.compute_dtype == "bfloat16", "--compute_dtype bfloat16",
+         "a later precision slice"),
+        (args.scan_k > 1, "--scan_k > 1 (one step per dispatch here; a CUDA "
+         "graph would take its place)", "a later performance slice"),
+        (args.profile_dir is not None, "--profile_dir",
+         "the profiling slice"),
+    ]
+    for refused, what, slice_name in deferred:
+        if refused:
+            parser.error(f"{what} is not ported to gangealing_torch yet; it "
+                         f"comes with {slice_name}")
+    if args.transform == ["similarity"] and args.tv_weight != 0:
+        parser.error("TV loss is not supported for similarity-only STNs")
+
+
+def build_configs(args):
+    g_cfg = GeneratorConfig(size=args.gen_size, style_dim=args.dim_latent,
+                            n_mlp=args.n_mlp,
+                            channel_multiplier=args.gen_channel_multiplier,
+                            num_fp16_res=args.num_fp16_res)
+    t_cfg = ComposedSTNConfig(
+        transforms=tuple(args.transform), flow_size=args.flow_size,
+        supersize=args.real_size,
+        channel_multiplier=args.stn_channel_multiplier,
+        num_heads=args.num_heads)
+    ll_cfg = LatentLearnerConfig(n_comps=args.ndirs, inject_index=args.inject,
+                                 n_latent=g_cfg.n_latent,
+                                 num_heads=args.num_heads,
+                                 style_dim=args.dim_latent)
+    return TrainConfig(
+        g=g_cfg, t=t_cfg, ll=ll_cfg, batch=args.batch, stn_lr=args.stn_lr,
+        ll_lr=args.ll_lr, tv_weight=args.tv_weight,
+        flow_identity_weight=args.flow_identity_weight,
+        freeze_ll=args.freeze_ll, flips=args.flips,
+        sample_from_full_res=args.sample_from_full_res,
+        padding_mode=args.padding_mode, loss_fn=args.loss_fn,
+        anneal_psi=args.anneal_psi, anneal_fn=args.anneal_fn,
+        period=args.period, decay=args.decay, tm=args.tm, iter=args.iter,
+        compute_dtype=args.compute_dtype)
+
+
+def load_perceptual(args, device, rng):
+    """The VGG16 trunk (and, for lpips, the calibration layers) from
+    ``--perceptual_weights``, or random from ``rng``."""
+    model = LPIPS(use_lins=args.loss_fn == "lpips", device=device,
+                  generator=rng)
+    if args.perceptual_weights is not None:
+        sd = torch.load(args.perceptual_weights, map_location="cpu",
+                        weights_only=False)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+        missing, unexpected = model.load_state_dict(
+            import_torchvision_vgg(sd), strict=False)
+        missing = [k for k in missing if k.startswith("net.")]
+        if unexpected or missing:
+            raise ValueError(f"{args.perceptual_weights}: unexpected "
+                             f"perceptual weights {unexpected}, VGG weights "
+                             f"missing {missing}")
+    else:
+        print("WARNING: no --perceptual_weights given; using a random VGG "
+              "(fine for smoke tests, not for real training)")
+    model.eval().requires_grad_(False)
+    loss = make_perceptual_loss(args.loss_fn)
+    return model, lambda x, y: loss(model, x, y)
+
+
+def main(argv=None):
+    """Train as the flags say. Returns (state, generator, perceptual model,
+    perceptual_fn) after the last iteration."""
+    parser = base_training_argparse()
+    args = parser.parse_args(argv)
+    check_supported(parser, args)
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    results_path = os.path.join(args.results, args.exp_name)
+    os.makedirs(results_path, exist_ok=True)
+    if args.auto_resume:
+        latest = latest_checkpoint(results_path)
+        if latest is not None:
+            print(f"--auto_resume: picking up from {latest}")
+            args.ckpt = latest
+            args.load_G_only = False
+
+    cfg = build_configs(args)
+    rngs = [torch.Generator().manual_seed(args.seed * 8 + k) for k in range(3)]
+    t = ComposedSTN(cfg.t, device=device, generator=rngs[0])
+    ll = LatentLearner(cfg.ll, device=device, generator=rngs[1])
+    perceptual, perceptual_fn = load_perceptual(args, device, rngs[2])
+
+    print(f"Loading model from {args.ckpt}")
+    ckpt_path = find_model(args.ckpt)
+    ckpt = load_checkpoint(ckpt_path)
+    generator = Generator(cfg.g, device=device)
+    generator.load_state_dict(module_state(ckpt["g_ema"]), strict=True)
+    generator.eval().requires_grad_(False)
+
+    state = TrainState(cfg, t, ll)
+    start_iter = 0
+    if not args.load_G_only and "t" in ckpt:
+        print("Resuming STN/ll weights and Adam state from checkpoint")
+        resume(state, ckpt)
+        start_iter = parse_start_iter(ckpt_path)
+    else:
+        print("Only G_EMA loaded; running the PCA cold start")
+        cold_start_ll(ll, generator,
+                      torch.Generator(device).manual_seed(args.seed * 8 + 3),
+                      debug=args.debug)
+    if args.real_data_path is not None:
+        print("note: --real_data_path feeds the training visuals only, "
+              "which are not ported yet")
+    train_gangealing(state, generator, perceptual_fn, results_path,
+                     start_iter=start_iter, seed=args.seed,
+                     log_every=args.log_every, ckpt_every=args.ckpt_every,
+                     args=args)
+    return state, generator, perceptual, perceptual_fn
+
+
+if __name__ == "__main__":
+    main()

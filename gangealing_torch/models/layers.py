@@ -1,10 +1,12 @@
-"""StyleGAN2-family building blocks of the STN encoder, as nn.Modules.
+"""StyleGAN2-family building blocks, as nn.Modules.
 
-Port of the STN part of gangealing_tpu/models/layers.py (EqualLinear,
-EqualConv2d, Blur, FusedLeakyReLU, ConvLayer, ResBlock). Module and
-parameter names follow the reference's torch modules, so a state_dict holds
-the same flat keys as the JAX package's parameter dicts. Derived buffers
-(the blur FIR taps) are not persistent.
+Port of gangealing_tpu/models/layers.py: the STN encoder's EqualLinear,
+EqualConv2d, Blur, FusedLeakyReLU, ConvLayer and ResBlock, and the
+generator's pixel_norm, ModulatedConv2d, StyledConv (with noise injection),
+ToRGB and ConstantInput. Module and parameter names follow the reference's
+torch modules, so a state_dict holds the same flat keys as the JAX
+package's parameter dicts. Derived buffers (the blur FIR taps) are not
+persistent.
 
 Every constructor takes the ``device`` to build on and the
 ``torch.Generator`` its random weights are drawn from.
@@ -16,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gangealing_torch.ops.resample import fused_leaky_relu, make_kernel, upfirdn2d
+from gangealing_torch.ops.resample import (
+    blur, fused_leaky_relu, make_kernel, upfirdn2d, upsample2x)
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -28,22 +31,30 @@ def randn(shape, generator=None, device=None):
     return torch.randn(shape, generator=generator, device=gen_device).to(device)
 
 
-class EqualLinear(nn.Module):
-    """Linear layer with equalized learning rate (networks.py:127)."""
+def pixel_norm(x, eps=1e-8):
+    return x * torch.rsqrt((x ** 2).mean(dim=1, keepdim=True) + eps)
 
-    def __init__(self, in_dim, out_dim, activation=None, *, device=None,
-                 generator=None):
+
+class EqualLinear(nn.Module):
+    """Linear layer with equalized learning rate (networks.py:127). The
+    weight is stored divided by ``lr_mul``."""
+
+    def __init__(self, in_dim, out_dim, activation=None, *, bias_init=0.0,
+                 lr_mul=1.0, device=None, generator=None):
         super().__init__()
-        self.weight = nn.Parameter(randn((out_dim, in_dim), generator, device))
-        self.bias = nn.Parameter(torch.zeros(out_dim, device=device))
-        self.scale = 1.0 / math.sqrt(in_dim)
+        self.weight = nn.Parameter(
+            randn((out_dim, in_dim), generator, device) / lr_mul)
+        self.bias = nn.Parameter(
+            torch.full((out_dim,), float(bias_init), device=device))
+        self.scale = 1.0 / math.sqrt(in_dim) * lr_mul
+        self.lr_mul = lr_mul
         self.activation = activation
 
     def forward(self, x):
         out = F.linear(x, self.weight * self.scale)
         if self.activation:
-            return fused_leaky_relu(out, self.bias)
-        return out + self.bias
+            return fused_leaky_relu(out, self.bias * self.lr_mul)
+        return out + self.bias * self.lr_mul
 
 
 class EqualConv2d(nn.Module):
@@ -128,3 +139,106 @@ class ResBlock(nn.Module):
 
     def forward(self, x):
         return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+
+
+class ModulatedConv2d(nn.Module):
+    """StyleGAN2's modulated conv (networks.py:176-282) in the JAX package's
+    shared-weight form: the style scales the input channels, one conv with
+    the shared weight runs over the whole batch, and the demodulation scales
+    the output channels, which equals the reference's per-sample grouped
+    conv. ``upsample`` is a stride-2 transposed conv then a blur;
+    ``normalize`` is the form of the layers under ``num_fp16_res``."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, style_dim, demodulate=True,
+                 upsample=False, normalize=False, *, device=None,
+                 generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(randn(
+            (1, out_ch, in_ch, kernel_size, kernel_size), generator, device))
+        self.modulation = EqualLinear(style_dim, in_ch, bias_init=1.0,
+                                      device=device, generator=generator)
+        self.fan_in = in_ch * kernel_size * kernel_size
+        self.demodulate = demodulate
+        self.upsample = upsample
+        self.normalize = normalize
+
+    def forward(self, x, style):
+        w = self.weight[0]
+        kh = w.shape[2]
+        s = self.modulation(style)  # (N, I)
+        if self.normalize:
+            s = s / s.abs().max()
+        weight = w / math.sqrt(self.fan_in)
+        if self.normalize:
+            weight = weight * math.sqrt(1.0 / self.fan_in) / weight.abs().amax(
+                dim=(1, 2, 3), keepdim=True)
+        xs = x * s[:, :, None, None]
+        if self.upsample:
+            out = F.conv_transpose2d(xs, weight.transpose(0, 1), stride=2)
+        else:
+            out = F.conv2d(xs, weight, padding=kh // 2)
+        if self.demodulate:
+            wsq = (weight ** 2).sum(dim=(2, 3))  # (O, I)
+            demod = torch.rsqrt((s ** 2) @ wsq.T + 1e-8)  # (N, O)
+            out = out * demod[:, :, None, None]
+        if self.upsample:
+            p = (len(BLUR_KERNEL) - 2) - (kh - 1)
+            out = blur(out, BLUR_KERNEL, pad=((p + 1) // 2 + 1, p // 2 + 1),
+                       upsample_factor=2)
+        return out
+
+
+class NoiseInjection(nn.Module):
+    def __init__(self, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(1, device=device))
+
+    def forward(self, x, noise):
+        return x + self.weight * noise
+
+
+class StyledConv(nn.Module):
+    """ModulatedConv2d + NoiseInjection + FusedLeakyReLU (networks.py:314-350).
+    ``noise`` is (N or 1, 1, H, W), or None for none."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, style_dim, upsample=False,
+                 normalize=False, *, device=None, generator=None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, out_ch, kernel_size, style_dim,
+                                    upsample=upsample, normalize=normalize,
+                                    device=device, generator=generator)
+        self.noise = NoiseInjection(device=device)
+        self.activate = FusedLeakyReLU(out_ch, device=device)
+
+    def forward(self, x, style, noise=None):
+        out = self.conv(x, style)
+        if noise is not None:
+            out = self.noise(out, noise)
+        return self.activate(out)
+
+
+class ToRGB(nn.Module):
+    """1x1 modulated conv without demodulation, plus a bias and the
+    blur-upsampled skip (networks.py:353-372)."""
+
+    def __init__(self, in_ch, style_dim, *, device=None, generator=None):
+        super().__init__()
+        self.conv = ModulatedConv2d(in_ch, 3, 1, style_dim, demodulate=False,
+                                    device=device, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1, device=device))
+
+    def forward(self, x, style, skip=None):
+        out = self.conv(x, style) + self.bias
+        if skip is not None:
+            out = out + upsample2x(skip, BLUR_KERNEL)
+        return out
+
+
+class ConstantInput(nn.Module):
+    def __init__(self, channels, size=4, *, device=None, generator=None):
+        super().__init__()
+        self.input = nn.Parameter(randn((1, channels, size, size), generator,
+                                        device))
+
+    def forward(self, batch):
+        return self.input.expand(batch, -1, -1, -1)

@@ -414,11 +414,17 @@ class ComposedSTN(nn.Module):
 
     def forward(self, input_img, output_resolution=None, iters=1,
                 warp_policy="cartesian", alpha=None, padding_mode="border",
-                image_bounds=None, return_out_of_bounds=False):
+                image_bounds=None, return_out_of_bounds=False,
+                input_img_for_sampling=None):
         """Returns [out, grid, flow_or_matrix, sim_out, oob], as
         gangealing_tpu's composed_stn_forward; ``oob`` is None unless
-        ``return_out_of_bounds``."""
-        out = source = input_img
+        ``return_out_of_bounds``. Each stage regresses its warp from the
+        previous stage's output and applies the chained warp to
+        ``input_img_for_sampling`` (default ``input_img``), as training's
+        ``--sample_from_full_res`` does with G's full-resolution image."""
+        out = input_img
+        source = input_img if input_img_for_sampling is None \
+            else input_img_for_sampling
         warp = None
         n_minus_1 = len(self.stns) - 1
         K = self.cfg.num_heads

@@ -1,7 +1,8 @@
 """Flow-field regularizers (port of gangealing_tpu/ops/flow.py).
 
 ``total_variation_loss(flow, reduce_batch=False)`` is the per-image flow
-score of the serving apps (gangealing_tpu/apps/flow_scores.py).
+score of the serving apps (gangealing_tpu/apps/flow_scores.py); both losses
+regularise the residual flow in training.
 """
 
 import torch
@@ -22,3 +23,7 @@ def total_variation_loss(delta_flow, reduce_batch=True):
                     reduce_dims)
     return diff_x + diff_y
 
+
+def flow_identity_loss(delta_flow):
+    """L2 pull toward the identity (zero residual flow)."""
+    return (delta_flow ** 2).mean()

@@ -2,14 +2,41 @@
 
 Port of gangealing_tpu/ops/grid_sample.py. ``grid_sample`` is the plain
 PyTorch version (bilinear and nearest, border / reflection / zeros padding,
-either ``align_corners``); ``grid_sample_auto`` is the wrapper of the CUDA
-bilinear kernel (csrc/grid_sample.cu), which replaces the TPU kernel
-gangealing_tpu/ops/pallas_grid_sample.py::_fwd_kernel.
+either ``align_corners``). ``grid_sample_auto`` takes it for CPU tensors and
+on CUDA launches the bilinear kernels of csrc/grid_sample.cu through an
+autograd Function: the forward (K2) replaces
+gangealing_tpu/ops/pallas_grid_sample.py::_fwd_kernel, its backward the
+``_dcoords_kernel`` (K4, d/dgrid) and ``_dimg_kernel`` (K5b, d/dimage).
+
+The plain version differentiates as ``jax.grad`` of the JAX package's
+``grid_sample`` does, ties included: an identity grid puts every point on an
+integer coordinate and the first row and column on the border clamp.
 """
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gangealing_torch import _build
+
+
+def jclip(x, lo, hi):
+    """``jnp.clip`` with its gradient: min(max(x, lo), hi) against tensors,
+    so a value on a bound passes half the gradient (``Tensor.clamp`` passes
+    all of it). The values equal ``x.clamp(lo, hi)``."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def jmax(x, lo):
+    """``jnp.maximum(x, lo)`` for a constant ``lo``, with its gradient: half
+    at a tie (``clamp_min`` passes all of it)."""
+    return torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+
+
+def jabs(x):
+    """``jnp.abs`` with its gradient: 1 at 0 (``Tensor.abs`` gives 0)."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _unnormalize(coord, size, align_corners):
@@ -24,7 +51,7 @@ def _reflect(coord, twice_low, twice_high):
         return torch.zeros_like(coord)
     mn = twice_low / 2.0
     span = (twice_high - twice_low) / 2.0
-    coord = (coord - mn).abs()
+    coord = jabs(coord - mn)
     extra = torch.remainder(coord, span)
     flips = torch.floor(coord / span)
     flipped = torch.remainder(flips, 2.0) != 0.0
@@ -35,13 +62,13 @@ def _compute_coords(coord, size, padding_mode, align_corners):
     """Unnormalize a coordinate from [-1, 1] and apply the padding rule."""
     c = _unnormalize(coord, size, align_corners)
     if padding_mode == "border":
-        c = c.clamp(0.0, size - 1)
+        c = jclip(c, 0.0, size - 1)
     elif padding_mode == "reflection":
         if align_corners:
             c = _reflect(c, 0, 2 * (size - 1))
         else:
             c = _reflect(c, -1, 2 * size - 1)
-        c = c.clamp(0.0, size - 1)
+        c = jclip(c, 0.0, size - 1)
     elif padding_mode != "zeros":
         raise ValueError(f"unknown padding_mode: {padding_mode}")
     return c
@@ -104,17 +131,57 @@ def grid_sample(input, grid, mode="bilinear", padding_mode="border",
 
 def grid_sample_auto(input, grid, mode="bilinear", padding_mode="border",
                      align_corners=False):
-    """grid_sample through the CUDA kernel where one exists.
+    """grid_sample through the CUDA kernels where they exist.
 
     A CPU tensor takes the plain ``grid_sample``. A CUDA tensor in bilinear
-    mode with ``align_corners=False`` launches the kernel, or raises if the
-    kernel does not take it. Nearest mode and ``align_corners=True`` were
-    never in a TPU kernel and stay plain PyTorch on CUDA too.
+    mode with ``align_corners=False`` goes through ``GridSample``, whose
+    forward and backward launch the kernels or raise. Nearest mode and
+    ``align_corners=True`` were never in a TPU kernel and stay plain PyTorch
+    on CUDA too.
     """
     if input.device.type == "cpu" or mode != "bilinear" or align_corners:
         return grid_sample(input, grid, mode=mode, padding_mode=padding_mode,
                            align_corners=align_corners)
-    return grid_sample_cuda(input, grid, padding_mode)
+    return GridSample.apply(input.contiguous(), grid.contiguous(),
+                            padding_mode)
+
+
+class GridSample(torch.autograd.Function):
+    """Bilinear, align_corners=False grid_sample on the card: K2 forward;
+    the backward launches K4 for d/dgrid and K5b for d/dinput, each only
+    when that input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, input, grid, padding_mode):
+        ctx.save_for_backward(input, grid)
+        ctx.padding_mode = padding_mode
+        return grid_sample_cuda(input, grid, padding_mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        input, grid = ctx.saved_tensors
+        dout = dout.contiguous()
+        dinput = dgrid = None
+        if ctx.needs_input_grad[1]:
+            dgrid = grid_sample_dgrid(input, grid, dout, ctx.padding_mode)
+        if ctx.needs_input_grad[0]:
+            dinput = grid_sample_dimg(grid, dout, input.shape,
+                                      ctx.padding_mode)
+        return dinput, dgrid, None
+
+
+def _check_grid(grid, N):
+    _, Ho, Wo, two = grid.shape
+    if grid.shape[0] != N or two != 2:
+        raise ValueError(f"grid must be ({N}, Ho, Wo, 2), got {tuple(grid.shape)}")
+    return Ho, Wo
+
+
+def _check_dout(dout, N, C, Ho, Wo, device):
+    _build.check_operand("dout", dout, 4, device)
+    if tuple(dout.shape) != (N, C, Ho, Wo):
+        raise ValueError(f"dout must be {(N, C, Ho, Wo)}, got {tuple(dout.shape)}")
 
 
 def grid_sample_cuda(input, grid, padding_mode="border"):
@@ -127,9 +194,7 @@ def grid_sample_cuda(input, grid, padding_mode="border"):
     _build.check_operand("input", input, 4, device)
     _build.check_operand("grid", grid, 4, device)
     N, C, H, W = input.shape
-    _, Ho, Wo, two = grid.shape
-    if grid.shape[0] != N or two != 2:
-        raise ValueError(f"grid must be ({N}, Ho, Wo, 2), got {tuple(grid.shape)}")
+    Ho, Wo = _check_grid(grid, N)
     code = _build.padding_code(padding_mode)
     out = torch.empty((N, C, Ho, Wo), device=device, dtype=torch.float32)
     lib = _build.load_kernels()
@@ -137,6 +202,44 @@ def grid_sample_cuda(input, grid, padding_mode="border"):
                   grid.data_ptr(), out.data_ptr(), N, C, H, W, Ho * Wo, code,
                   device.index, _build.stream_of(device))
     return out
+
+
+def grid_sample_dgrid(input, grid, dout, padding_mode="border"):
+    """K4: the gradient of ``grid_sample_cuda`` with respect to the grid,
+    (N, Ho, Wo, 2), given ``dout`` (N, C, Ho, Wo) on the card."""
+    device = input.device
+    _build.check_operand("input", input, 4, device)
+    _build.check_operand("grid", grid, 4, device)
+    N, C, H, W = input.shape
+    Ho, Wo = _check_grid(grid, N)
+    _check_dout(dout, N, C, Ho, Wo, device)
+    code = _build.padding_code(padding_mode)
+    dgrid = torch.empty_like(grid)
+    lib = _build.load_kernels()
+    _build.launch("grid_sample_dgrid", lib.gg_grid_sample_dgrid,
+                  input.data_ptr(), grid.data_ptr(), dout.data_ptr(),
+                  dgrid.data_ptr(), N, C, H, W, Ho * Wo, code, device.index,
+                  _build.stream_of(device))
+    return dgrid
+
+
+def grid_sample_dimg(grid, dout, input_shape, padding_mode="border"):
+    """K5b: the gradient of ``grid_sample_cuda`` with respect to its input,
+    of ``input_shape`` (N, C, H, W), given ``dout`` on the card. A scatter
+    with atomicAdd: the order of the sums, and so the last bits, change from
+    run to run."""
+    device = grid.device
+    _build.check_operand("grid", grid, 4, device)
+    N, C, H, W = input_shape
+    Ho, Wo = _check_grid(grid, N)
+    _check_dout(dout, N, C, Ho, Wo, device)
+    code = _build.padding_code(padding_mode)
+    dimg = torch.zeros((N, C, H, W), device=device, dtype=torch.float32)
+    lib = _build.load_kernels()
+    _build.launch("grid_sample_dimg", lib.gg_grid_sample_dimg,
+                  grid.data_ptr(), dout.data_ptr(), dimg.data_ptr(), N, C, H,
+                  W, Ho * Wo, code, device.index, _build.stream_of(device))
+    return dimg
 
 
 def affine_grid(theta, size, align_corners=False):

@@ -1,18 +1,28 @@
 """Mipmap-anti-aliased warping (the quality core of the STN sampler).
 
 Port of gangealing_tpu/ops/mipmap.py. ``_mipmap_warp_fold`` is the plain
-PyTorch version; ``mipmap_warp`` is the wrapper of the CUDA mipmap kernel
-(csrc/mipmap_sample.cu), which replaces the TPU kernel
-gangealing_tpu/ops/pallas_mipmap.py::_fwd_kernel.
+PyTorch version. On CUDA, ``mipmap_warp`` builds the Gaussian stack and the
+levels with plain torch ops and samples the stack through ``MipmapSample``,
+an autograd Function over the kernels of csrc/mipmap_sample.cu: the forward
+(K1) replaces gangealing_tpu/ops/pallas_mipmap.py::_fwd_kernel, its
+backward the ``_dcoords_kernel`` (K3, d/dgrid and d/dlevels) and
+``_dimg_kernel`` (K5a, d/dstack). Autograd chains d/dlevels through
+``mipmap_levels`` and d/dstack through ``_build_stack``, as the JAX package
+chains its kernels through ``_band_tent_coords``.
+
+The plain version differentiates as ``jax.grad`` of the JAX fold path does,
+ties included (clamps and the level tent at integer levels).
 """
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from gangealing_torch import _build
-from gangealing_torch.ops.grid_sample import grid_sample
+from gangealing_torch.ops.grid_sample import (
+    _check_dout, _check_grid, grid_sample, jabs, jclip, jmax)
 from gangealing_torch.ops.resample import interpolate_bilinear
 
 
@@ -36,7 +46,7 @@ def _max_coord_distance(coords):
 
     def dist(other):
         sq = ((other - coords) ** 2).sum(dim=3)
-        return torch.sqrt(sq.clamp_min(1.0))
+        return torch.sqrt(jmax(sq, 1.0))
 
     d_l = dist(padded[:, 1:-1, :-2, :])
     d_r = dist(padded[:, 1:-1, 2:, :])
@@ -51,7 +61,7 @@ def mipmap_levels(grid, height, width, max_num_levels):
     y = (height - 1.0) * (grid[..., 1] + 1.0) / 2.0
     coords = torch.stack([x, y], dim=3)
     levels = torch.log2(_max_coord_distance(coords))
-    return levels.clamp(0.0, max_num_levels - 1.0)
+    return jclip(levels, 0.0, max_num_levels - 1.0)
 
 
 def _build_stack(x, num_levels):
@@ -90,7 +100,7 @@ def _sample_stack(stack, grid, levels, padding_mode):
     lv = levels[:, None, None, :, :]
     d = torch.arange(D, dtype=levels.dtype,
                      device=levels.device)[None, :, None, None, None]
-    w = (1.0 - (lv - d).abs()).clamp_min(0.0)
+    w = jmax(1.0 - jabs(lv - d), 0.0)
     return (warped * w.to(warped.dtype)).sum(dim=1)  # (N, C, Ho, Wo)
 
 
@@ -101,6 +111,46 @@ def _mipmap_warp_fold(inputs, grid, num_levels, levels, padding_mode):
     return _sample_stack(stack, grid, levels, padding_mode)
 
 
+class MipmapSample(torch.autograd.Function):
+    """Sample a Gaussian stack at per-point levels on the card: K1 forward;
+    the backward launches K3 for d/dgrid and d/dlevels and K5a for
+    d/dstack, each only when its inputs need a gradient."""
+
+    @staticmethod
+    def forward(ctx, stack, grid, levels, padding_mode):
+        ctx.save_for_backward(stack, grid, levels)
+        ctx.padding_mode = padding_mode
+        return mipmap_sample(stack, grid, levels, padding_mode)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        stack, grid, levels = ctx.saved_tensors
+        dout = dout.contiguous()
+        dstack = dgrid = dlevels = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dgrid, dlevels = mipmap_sample_dcoords(stack, grid, levels, dout,
+                                                   ctx.padding_mode)
+        if ctx.needs_input_grad[0]:
+            dstack = mipmap_sample_dstack(grid, levels, dout, stack.shape,
+                                          ctx.padding_mode)
+        return dstack, dgrid, dlevels, None
+
+
+def _check_stack_operands(stack, grid, levels):
+    device = stack.device
+    _build.check_operand("stack", stack, 5, device)
+    _build.check_operand("grid", grid, 4, device)
+    _build.check_operand("levels", levels, 3, device)
+    N, D = stack.shape[:2]
+    Ho, Wo = _check_grid(grid, N)
+    if tuple(levels.shape) != (N, Ho, Wo):
+        raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
+    if D < 2:
+        raise ValueError(f"the stack needs at least 2 levels, got {D}")
+    return Ho, Wo
+
+
 def mipmap_sample(stack, grid, levels, padding_mode="border"):
     """K1: sample a Gaussian stack at per-point levels, on the card.
 
@@ -108,18 +158,9 @@ def mipmap_sample(stack, grid, levels, padding_mode="border"):
     (N, Ho, Wo): contiguous float32 CUDA tensors on one device. Returns
     (N, C, Ho, Wo) float32, equal to ``_sample_stack``.
     """
+    Ho, Wo = _check_stack_operands(stack, grid, levels)
     device = stack.device
-    _build.check_operand("stack", stack, 5, device)
-    _build.check_operand("grid", grid, 4, device)
-    _build.check_operand("levels", levels, 3, device)
     N, D, C, H, W = stack.shape
-    _, Ho, Wo, two = grid.shape
-    if grid.shape[0] != N or two != 2:
-        raise ValueError(f"grid must be ({N}, Ho, Wo, 2), got {tuple(grid.shape)}")
-    if tuple(levels.shape) != (N, Ho, Wo):
-        raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
-    if D < 2:
-        raise ValueError(f"the stack needs at least 2 levels, got {D}")
     code = _build.padding_code(padding_mode)
     out = torch.empty((N, C, Ho, Wo), device=device, dtype=torch.float32)
     lib = _build.load_kernels()
@@ -129,19 +170,61 @@ def mipmap_sample(stack, grid, levels, padding_mode="border"):
     return out
 
 
+def mipmap_sample_dcoords(stack, grid, levels, dout, padding_mode="border"):
+    """K3: the gradients of ``mipmap_sample`` with respect to the grid
+    (N, Ho, Wo, 2) and the levels (N, Ho, Wo), given ``dout`` (N, C, Ho, Wo)
+    on the card."""
+    Ho, Wo = _check_stack_operands(stack, grid, levels)
+    device = stack.device
+    N, D, C, H, W = stack.shape
+    _check_dout(dout, N, C, Ho, Wo, device)
+    code = _build.padding_code(padding_mode)
+    dgrid = torch.empty_like(grid)
+    dlevels = torch.empty_like(levels)
+    lib = _build.load_kernels()
+    _build.launch("mipmap_sample_dcoords", lib.gg_mipmap_sample_dcoords,
+                  stack.data_ptr(), grid.data_ptr(), levels.data_ptr(),
+                  dout.data_ptr(), dgrid.data_ptr(), dlevels.data_ptr(), N, D,
+                  C, H, W, Ho * Wo, code, device.index,
+                  _build.stream_of(device))
+    return dgrid, dlevels
+
+
+def mipmap_sample_dstack(grid, levels, dout, stack_shape,
+                         padding_mode="border"):
+    """K5a: the gradient of ``mipmap_sample`` with respect to the stack, of
+    ``stack_shape`` (N, D, C, H, W), given ``dout`` on the card. A scatter
+    with atomicAdd: the order of the sums, and so the last bits, change from
+    run to run."""
+    device = grid.device
+    N, D, C, H, W = stack_shape
+    dstack = torch.zeros((N, D, C, H, W), device=device, dtype=torch.float32)
+    Ho, Wo = _check_stack_operands(dstack, grid, levels)
+    _check_dout(dout, N, C, Ho, Wo, device)
+    code = _build.padding_code(padding_mode)
+    lib = _build.load_kernels()
+    _build.launch("mipmap_sample_dstack", lib.gg_mipmap_sample_dstack,
+                  grid.data_ptr(), levels.data_ptr(), dout.data_ptr(),
+                  dstack.data_ptr(), N, D, C, H, W, Ho * Wo, code,
+                  device.index, _build.stream_of(device))
+    return dstack
+
+
 def mipmap_warp(inputs, grid, max_num_levels=3.5, padding_mode="border"):
     """Anti-aliased grid_sample: per-pixel mipmap level selection.
 
     inputs: (N, C, H, W); grid: (N, Ho, Wo, 2) normalized to [-1, 1].
     A CPU tensor takes the plain ``_mipmap_warp_fold``; a CUDA tensor
-    launches the mipmap kernel, or raises if the kernel does not take it.
+    samples through ``MipmapSample``, which launches the kernels or raises.
     """
     N, C, H, W = inputs.shape
     num_levels = int(math.ceil(max_num_levels - 1.0)) + 1
-    levels = mipmap_levels(grid, H, W, max_num_levels)
+    # the JAX warp's floor at its min_level of 0: no change to the values,
+    # but half the gradient of a level that sits on it
+    levels = jmax(mipmap_levels(grid, H, W, max_num_levels), 0.0)
     if inputs.device.type == "cpu":
         return _mipmap_warp_fold(inputs, grid, num_levels, levels,
                                  padding_mode)
     stack = torch.stack(_build_stack(inputs, num_levels), dim=1)
-    return mipmap_sample(stack, grid.contiguous(), levels.contiguous(),
-                         padding_mode).to(inputs.dtype)
+    return MipmapSample.apply(stack, grid.contiguous(), levels.contiguous(),
+                              padding_mode).to(inputs.dtype)

@@ -17,15 +17,18 @@ def make_kernel(k, device=None):
     return k / k.sum()
 
 
-def upfirdn2d(x, kernel, down=1, pad=(0, 0)):
-    """FIR filter, then downsample, as one depthwise conv.
+def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+    """Upsample (zero-insert), FIR filter, downsample, the filter as one
+    depthwise conv.
 
     x: (N, C, H, W); kernel: (kh, kw). ``pad`` is (pad0, pad1) applied to both
-    spatial dims. Output H' = (H + pad0 + pad1 - kh)//down + 1. The
-    upsampling form of the JAX version serves the generator and is not
-    ported yet.
+    spatial dims. Output H' = (H*up + pad0 + pad1 - kh)//down + 1. As in the
+    reference, each sample is followed by ``up - 1`` zeros.
     """
-    C = x.shape[1]
+    N, C, H, W = x.shape
+    if up > 1:
+        x = F.pad(x.reshape(N, C, H, 1, W, 1), (0, up - 1, 0, 0, 0, up - 1))
+        x = x.reshape(N, C, H * up, W * up)
     x = F.pad(x, (pad[0], pad[1], pad[0], pad[1]))
     # correlating with the flipped kernel is a true convolution
     k = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
@@ -33,9 +36,21 @@ def upfirdn2d(x, kernel, down=1, pad=(0, 0)):
                     stride=down, groups=C)
 
 
-def blur(x, kernel, pad):
-    """FIR blur (reference networks.py:70-86)."""
-    return upfirdn2d(x, make_kernel(kernel, x.device), pad=pad)
+def upsample2x(x, kernel, factor=2):
+    """Blur-based 2x upsample (reference networks.py:28-46)."""
+    kernel = make_kernel(kernel, x.device) * (factor ** 2)
+    p = kernel.shape[0] - factor
+    return upfirdn2d(x, kernel, up=factor,
+                     pad=((p + 1) // 2 + factor - 1, p // 2))
+
+
+def blur(x, kernel, pad, upsample_factor=1):
+    """FIR blur (reference networks.py:70-86); after an upsampling by
+    ``upsample_factor`` the taps are scaled by its square."""
+    kernel = make_kernel(kernel, x.device)
+    if upsample_factor > 1:
+        kernel = kernel * (upsample_factor ** 2)
+    return upfirdn2d(x, kernel, pad=pad)
 
 
 def fused_leaky_relu(x, bias=None, negative_slope=0.2, scale=2 ** 0.5):

@@ -1,12 +1,15 @@
-"""The port's two CUDA kernels and their wrappers.
+"""The port's CUDA kernels and their wrappers.
 
 On the CPU: the port imports no JAX; the wrappers take their plain versions
 for CPU tensors, launch nothing and refuse to pass a CPU tensor to a kernel;
 and the plain versions match the TPU kernels they stand for, run in
 interpret mode as the JAX package's own tests run them (atol 1e-5, f32).
 
-On the card (marker ``cuda``, skipped without one): each kernel against its
-plain version on the same CUDA tensors (atol 1e-5), and the launch counts:
+On the card (marker ``cuda``, skipped without one): each forward kernel
+against its plain version on the same CUDA tensors (atol 1e-5), each
+backward kernel against the plain version's autograd (atol 1e-5 scaled by
+max(1, max|ref|): the scatters of K5a and K5b sum in another order), and
+the launch counts:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
@@ -47,9 +50,11 @@ def _inputs(seed, N=2, C=3, H=32, out=16):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without loading JAX, and so does
-    load_stn's own import of the checkpoint reader and the model zoo (here on
-    a path that does not exist, which it reports as such)."""
+    """Every module of the port imports without loading JAX (the training
+    modules with the JAX package's schedules, flags and checkpoint helpers
+    they reuse), and so do load_stn's own import of the checkpoint reader
+    and the model zoo (here on a path that does not exist, which it reports
+    as such) and the training CLI's parsing of its flags."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
@@ -62,13 +67,17 @@ def test_port_imports_no_jax():
             "    raise SystemExit('load_stn loaded a missing file')\n"
             "except FileNotFoundError as e:\n"
             "    assert 'no/such/stn.pt' in str(e), e\n"
+            "from gangealing_torch.cli.train import base_training_argparse\n"
+            "a = base_training_argparse().parse_args(\n"
+            "    ['--exp-name', 'x', '--ckpt', 'g.pt', '--batch', '40'])\n"
+            "assert a.batch == 40\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 10
+    assert len(modules) >= 20
 
 
 @pytest.mark.parametrize("padding_mode", PADDINGS)
@@ -174,3 +183,83 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     stack = torch.zeros(1, 1, 3, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="2 levels"):
         tmm.mipmap_sample(stack, g, torch.zeros(1, 4, 4, device=cuda))
+
+
+def _grad_inputs(seed, cuda, N, C, H, out, kind):
+    """The identity grid at the source's size (integer coordinates, the
+    border clamp) or the affine zoom of ``_inputs``, with a cotangent."""
+    if kind == "identity":
+        out = H
+    img, grid = _inputs(seed, N=N, C=C, H=H, out=out)
+    if kind == "identity":
+        grid = tgs.identity_grid(N, out, out).numpy()
+    cot = np.random.RandomState(seed + 100).randn(N, C, out, out)
+    return (torch.from_numpy(img).to(cuda), torch.from_numpy(grid).to(cuda),
+            torch.from_numpy(cot.astype(np.float32)).to(cuda))
+
+
+def _scaled_err(ours, ref):
+    return float((ours - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["identity", "affine"])
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_grid_sample_backward_kernels_match_plain(cuda, padding_mode, kind):
+    """K4 (d/dgrid) and K5b (d/dimage) against the plain autograd."""
+    x, g, cot = _grad_inputs(5, cuda, 3, 5, 40, 24, kind)
+    ref = torch.autograd.grad(
+        tgs.grid_sample(x.requires_grad_(), g.requires_grad_(),
+                        padding_mode=padding_mode), (x, g), cot)
+    before = dict(LAUNCHES)
+    out = tgs.grid_sample_auto(x, g, padding_mode=padding_mode)
+    ours = torch.autograd.grad(out, (x, g), cot)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grid_sample_dgrid"] == before["grid_sample_dgrid"] + 1
+    assert LAUNCHES["grid_sample_dimg"] == before["grid_sample_dimg"] + 1
+    for o, r in zip(ours, ref):
+        assert _scaled_err(o, r) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["identity", "affine"])
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_mipmap_backward_kernels_match_plain(cuda, padding_mode, kind):
+    """K3 (d/dgrid, d/dlevels) and K5a (d/dstack) against the plain
+    autograd of _sample_stack, at the warp's levels and at integer ones."""
+    x, g, cot = _grad_inputs(6, cuda, 3, 5, 64, 32, kind)
+    stack = torch.stack(tmm._build_stack(x, 4), dim=1).contiguous()
+    levels = tmm.mipmap_levels(g, 64, 64, 3.5)
+    for lv in (levels, torch.round(levels * 1.2)):
+        lv = lv.contiguous()
+        args = (stack.requires_grad_(), g.requires_grad_(),
+                lv.requires_grad_())
+        ref = torch.autograd.grad(tmm._sample_stack(*args, padding_mode),
+                                  args, cot)
+        before = dict(LAUNCHES)
+        ours = torch.autograd.grad(
+            tmm.MipmapSample.apply(*args, padding_mode), args, cot)
+        torch.cuda.synchronize()
+        assert (LAUNCHES["mipmap_sample_dcoords"]
+                == before["mipmap_sample_dcoords"] + 1)
+        assert (LAUNCHES["mipmap_sample_dstack"]
+                == before["mipmap_sample_dstack"] + 1)
+        for o, r in zip(ours, ref):
+            assert _scaled_err(o, r) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_backward_launches_only_what_is_needed(cuda):
+    """An image that needs no gradient launches no image-gradient kernel,
+    and the perceptual-style loss reaches the grid through the kernels."""
+    x, g, cot = _grad_inputs(7, cuda, 2, 3, 64, 32, "affine")
+    g.requires_grad_()
+    before = dict(LAUNCHES)
+    (tmm.mipmap_warp(x, g) * cot).sum().backward()
+    (tgs.grid_sample_auto(x, g) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES["mipmap_sample_dcoords"] == before["mipmap_sample_dcoords"] + 1
+    assert LAUNCHES["grid_sample_dgrid"] == before["grid_sample_dgrid"] + 1
+    assert LAUNCHES["mipmap_sample_dstack"] == before["mipmap_sample_dstack"]
+    assert LAUNCHES["grid_sample_dimg"] == before["grid_sample_dimg"]
+    assert float(g.grad.abs().sum()) > 0

@@ -284,3 +284,38 @@ def test_load_stn_reference_schema(tmp_path, monkeypatch, small_params,
     with torch.no_grad():
         ours = model(_t(small_imgs))
     _assert_forward_close(ours, _jax_forward(small_params, small_imgs))
+
+
+def test_input_img_for_sampling_forward_and_grad(small_params, small_imgs):
+    """Features from the flow_size image, warps applied to the full-size
+    one, output at flow_size (training's --sample_from_full_res): the
+    forward at the tolerances above, and the gradient of a seeded linear
+    loss of the output with respect to every parameter and to the sampled
+    image, within 1e-4 of each tensor's largest JAX gradient."""
+    jrs = import_module("gangealing_tpu.ops.resample")
+    small = np.array(jrs.bilinear_downsample(jnp.asarray(small_imgs), 2))
+    cot = np.random.RandomState(10).randn(2, 3, 64, 64).astype(np.float32)
+    cfg = jstn.ComposedSTNConfig(**SMALL)
+
+    def jloss(p, full):
+        out = jstn.composed_stn_forward(p, cfg, jnp.asarray(small),
+                                        input_img_for_sampling=full,
+                                        output_resolution=64)
+        return jnp.sum(out[0] * cot), out
+
+    (_, ref), (jg, jgimg) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(_jnp(small_params),
+                                             jnp.asarray(small_imgs))
+    model = _load(tstn.ComposedSTN(tstn.ComposedSTNConfig(**SMALL)),
+                  small_params)
+    full = _t(small_imgs).requires_grad_()
+    ours = model(_t(small), input_img_for_sampling=full, output_resolution=64)
+    assert ours[0].shape == (2, 3, 64, 64)
+    _assert_forward_close([o.detach() if o is not None else o
+                           for o in ours], ref)
+    (ours[0] * _t(cot)).sum().backward()
+    for name, p in model.named_parameters():
+        r = np.asarray(jg[name])
+        _close(p.grad, r, 1e-4 * max(1.0, float(np.abs(r).max())))
+    r = np.asarray(jgimg)
+    _close(full.grad, r, 1e-4 * max(1.0, float(np.abs(r).max())))
