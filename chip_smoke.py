@@ -1,7 +1,7 @@
 """Smoke run of gangealing_torch on one CUDA card: build the kernels, hold
 them against their plain PyTorch versions, serve the flagship ComposedSTN
-congeal forward through them, and train the flagship GANgealing
-configuration through them.
+congeal forward through them, train the flagship GANgealing configuration
+through them, and run the AR object-lens app through them.
 
     python3 chip_smoke.py
 
@@ -38,11 +38,37 @@ Phases:
      share; and one step's loss and gradients on the card against the
      port's CPU path at batch 2, from the trained state and from the
      identity init (TRAIN_GRAD_TOL, TRAIN_GRAD_L2_TOL);
-  5. imgs/s, and each kernel's device time (torch.profiler) beside its
-     plain version's, each beside the card; the kernels line, whose
-     "launches" are the main path's (serve and cli.train) and whose
-     "check_launches" are the side checks' (the antialias=False step and
-     the forward whose input needs a gradient).
+  5. the AR object lenses (apps/mixed_reality.run_gangealing_on_video)
+     with the flagship STN loaded through load_stn and a synthetic dense
+     label (an opaque disc of radius 36 px in the 128 px congealed space,
+     smoothly varying colours, passed as points, colors and alphas): 256px
+     smooth frames at the eval batch of 50, sigma 1.2, opacity 1, flip
+     inference on, alpha blending; a warm-up batch, the peak memory of a
+     batch, AR frames/s over about 5 s in parts, one batch with every K1,
+     K2 and K6 launch held against its plain version on the inputs it got,
+     one with the Laplacian blend and the label overlaid on the congealed
+     frames, one batch of apps/propagate_to_images (objects=True, the label
+     read from an RGBA PNG) with its launches held the same way, and
+     python -m gangealing_torch.cli.mixed_reality in process on a directory
+     of PNG frames; K1 6, K2 1 and K6 2 launches a batch (2 more with the
+     overlay); then 2 frames of each app on the card against the port's
+     CPU path (points 0.05 px, congealed frames 5e-4, equal flips,
+     propagated frames within 1e-3 in mean absolute error);
+     models/stn.composed_propagate_object at batch 50 and the object splat
+     with a quarter of its points hidden at -1e6, each K6 launch held
+     against the plain splat; K6 against the plain splat at the path's
+     shapes, and the device time of a batch by kernel group with the idle
+     share;
+  6. rates, and each kernel's device time (torch.profiler) beside its
+     plain version's, its bound on the card (the bytes of an image or stack
+     that these grids must read counted as the distinct texels their taps
+     reach) and the time of the PyTorch call that computes the same
+     function where there is one (F.grid_sample, on the stack as a volume
+     for the mipmap kernels), each beside the card; the kernels line, whose
+     "launches" are the main path's (serve, cli.train and the AR apps) and
+     whose "check_launches" are the side checks' (the antialias=False step,
+     the forward whose input needs a gradient and the
+     composed_propagate_object check).
 
 Any failure raises and the exit code is not 0. The last line of standard
 output is the JSON result {"ok": true, "device": {...}}.
@@ -61,17 +87,25 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gangealing_torch import LAUNCHES, _build
-from gangealing_torch.apps.common import load_stn
+from gangealing_torch.apps.common import determine_flips, load_stn
+from gangealing_torch.apps.mixed_reality import run_gangealing_on_video
+from gangealing_torch.apps.propagate_to_images import propagate_to_images
+from gangealing_torch.cli import mixed_reality as mixed_reality_cli
 from gangealing_torch.cli import train as train_cli
 from gangealing_torch.models.latent_learner import LatentLearner
 from gangealing_torch.models.lpips import make_perceptual_loss
-from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
+from gangealing_torch.models.stn import (
+    ComposedSTN, ComposedSTNConfig, composed_propagate_object,
+    normalize_points)
 from gangealing_torch.models.stylegan2 import Generator, GeneratorConfig
 from gangealing_torch.ops import grid_sample as grid_sample_ops
 from gangealing_torch.ops import mipmap as mipmap_ops
+from gangealing_torch.ops import splat as splat_ops
 from gangealing_torch.ops.flow import total_variation_loss
 from gangealing_torch.ops.grid_sample import (
     affine_grid, grid_sample, grid_sample_auto, grid_sample_cuda)
@@ -79,12 +113,16 @@ from gangealing_torch.ops.mipmap import (
     _build_stack, _mipmap_warp_fold, _sample_stack, mipmap_levels,
     mipmap_sample, mipmap_warp)
 from gangealing_torch.ops.resample import interpolate_bilinear
+from gangealing_torch.ops.splat import splat2d
 from gangealing_torch.train import checkpoint as train_ckpt
 from gangealing_torch.train.losses import gangealing_loss
 from gangealing_torch.train.state import TrainState, train_step
 
 PADDINGS = ("border", "reflection", "zeros")
 KERNEL_TOL = 1e-5
+# F.grid_sample on the stack as a volume against K1: the same function, its
+# trilinear weights formed in another order
+LIBRARY_TOL = 1e-4
 OUT_TOL, GRID_TOL = 5e-4, 1e-4
 FLAGSHIP = ComposedSTNConfig(transforms=("similarity", "flow"), flow_size=128,
                              supersize=256, channel_multiplier=0.5)
@@ -132,12 +170,29 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                              "gangealing_tpu/ops/pallas_mipmap.py:105"),
     "grid_sample_dimg": ("gangealing_torch/csrc/grid_sample.cu",
                          "gangealing_tpu/ops/pallas_grid_sample.py:64"),
+    "splat": ("gangealing_torch/csrc/splat.cu",
+              "gangealing_tpu/ops/splat.py:106"),
 }
+# The AR phase: the eval CLI's default batch, the app's default sigma,
+# frames of the timed window (AR_BATCH each, run SUBWINDOWS times: about
+# 5 s on an H100 at 700 W), a synthetic label's disc in the 128 px
+# congealed space.
+AR_BATCH = 50
+AR_SIGMA = 1.2
+AR_FRAMES = 200
+LABEL_RADIUS = 36
+AR_PT_TOL, AR_PROP_MEAN_TOL = 0.05, 1e-3
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 # The kernels the main path launches: K1 and K2 in serve (K2 in its
-# antialias=False forward), K1 and K3 in every train step.
-MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords")
+# antialias=False forward), K1 and K3 in every train step, K1, K2 and K6 in
+# every batch of the AR app.
+MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords",
+                     "splat")
 
 
 def check(cond, msg):
@@ -162,9 +217,10 @@ def call_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, name=None):
     """Device time per call of ``fn`` in ms: the summed time of the kernels
-    one call launches, from torch.profiler over ``iters`` calls."""
+    one call launches (those whose name holds ``name``, if given), from
+    torch.profiler over ``iters`` calls."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
@@ -174,7 +230,8 @@ def device_ms(fn, iters=20):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (name is None or name in e.key))
     check(us > 0, "the profiler saw no device time")
     return us / 1e3 / iters
 
@@ -197,9 +254,17 @@ def setup():
           f"{time.perf_counter() - t0:.2f} s")
     log = lib.with_suffix(".log")
     if log.exists():
+        steps = []
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if line.startswith("== nvcc"):
+                steps.append(float(line.split()[-2]))
+            if "registers" in line or "spill" in line or \
+                    line.startswith("== nvcc"):
                 print(f"  {line.strip()}")
+        if len(steps) > 1:
+            print(f"  cold build: the compiles took {sum(steps[:-1]):.2f} s "
+                  f"summed, {max(steps[:-1]):.2f} s the longest; the link "
+                  f"{steps[-1]:.2f} s")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -207,6 +272,95 @@ def setup():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0), card
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved, ops):
+    """The least time (ms) the card could take for a function that moves
+    ``moved`` bytes between memory and the chip and does ``ops`` float32
+    operations, and which of the two bounds it: bytes over the HBM rate or
+    operations over the f32 rate."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def texel_bytes(image, grid, levels=None, padding_mode="border"):
+    """Bytes of ``image`` (N, C, H, W), or of a stack (N, D, C, H, W)
+    sampled at per-point ``levels``, that a bilinear sample at ``grid``
+    (N, Ho, Wo, 2), align_corners=False, must read: each distinct texel
+    that a point's taps reach with a nonzero weight (on its floor and ceil
+    levels for a stack), C float32 values each. Border padding clamps the
+    taps into the image; zeros padding drops those outside it."""
+    check(padding_mode in ("border", "zeros"), f"texel_bytes: {padding_mode}")
+    N, C, H, W = image.shape[0], *image.shape[-3:]
+    D = image.shape[1] if image.ndim == 5 else 1
+    ix = ((grid[..., 0] + 1) * W - 1) / 2
+    iy = ((grid[..., 1] + 1) * H - 1) / 2
+    if padding_mode == "border":
+        ix, iy = ix.clamp(0, W - 1), iy.clamp(0, H - 1)
+    ls = (torch.zeros_like(ix),) if levels is None else \
+        (levels.floor(), levels.ceil())
+    n = torch.arange(N, device=grid.device).view(N, 1, 1)
+    keys = []
+    for lv in ls:
+        for y in (iy.floor(), iy.ceil()):
+            for x in (ix.floor(), ix.ceil()):
+                inside = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+                key = ((n * D + lv.long()) * H + y.long()) * W + x.long()
+                keys.append(key[inside])
+    return torch.unique(torch.cat(keys)).numel() * C * image.element_size()
+
+
+def as_volume(stack):
+    """A stack (N, D, C, H, W) as F.grid_sample's volume (N, C, D, H, W)."""
+    return stack.permute(0, 2, 1, 3, 4).contiguous()
+
+
+def volume_grid(grid, levels, D):
+    """The grid (N, Ho, Wo, 2) with the levels as its depth coordinate,
+    (N, 1, Ho, Wo, 3). With align_corners=False depth d sits at
+    z = (2d + 1) / D - 1, and trilinear sampling of the volume is K1's
+    bilinear sample times its level tent; the levels lie in [0, D - 1],
+    where no padding mode acts along the depth."""
+    z = (2 * levels + 1) / D - 1
+    return torch.cat([grid, z[..., None]], -1)[:, None].contiguous()
+
+
+# Operations per output point (grid point) of each sampler, counted as
+# the multiplies and adds of its taps per channel plus about 20 (40 for a
+# backward) for the point's coordinates, weights and padding rule.
+def sampler_ops(name, points, C):
+    per_channel = {"mipmap_sample": 2 * 4 * 2 + 3, "grid_sample": 4 * 2,
+                   "mipmap_sample_dcoords": 2 * 4 * 4,
+                   "grid_sample_dgrid": 4 * 4,
+                   "mipmap_sample_dstack": 2 * 4 * 2,
+                   "grid_sample_dimg": 4 * 2}[name]
+    per_point = 40 if name.endswith(("dcoords", "dgrid")) else 20
+    return points * (C * per_channel + per_point)
+
+
+def splat_bound(args, out):
+    """Bound of the splat function (splat2d_cuda: K6, then the
+    normalisation) on these inputs: the canvas, points, values and sigma
+    read, the output written; operations per pixel of each visible
+    point's own window (2 exps, the weight, C multiply-adds and the alpha
+    add), and the normalisation's 2 per output value."""
+    canvas, coords, values, sigma, _ = args
+    N, C, H, W = canvas.shape
+    x, y = coords[..., 0], coords[..., 1]
+    s = 2.0 * sigma[:, None]
+    rows = (torch.clamp(torch.ceil(y + s), max=H - 1)
+            - torch.clamp(torch.floor(y - s), min=0) + 1)
+    cols = (torch.clamp(torch.ceil(x + s), max=W - 1)
+            - torch.clamp(torch.floor(x - s), min=0) + 1)
+    visible = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    pixels = float((rows * cols * visible).sum())
+    ops = pixels * (2 * C + 6) + 2 * out.numel()
+    return bound(nbytes(canvas, coords, values, sigma, out), ops)
 
 
 def kernel_inputs(dev):
@@ -259,7 +413,39 @@ def kernels_vs_plain(dev):
     # device time of the kernel(s) and time per call, kernel then plain
     times = {name: (device_ms(k), device_ms(p), call_ms(k), call_ms(p))
              for name, (k, p) in calls.items()}
-    return errs, times
+    N, C, Ho, Wo = mipmap_sample(stack, grid, levels).shape
+    out = torch.empty(N, C, Ho, Wo, device=dev)
+    # the bytes each must read: the taps these grids and levels reach
+    bounds = {
+        "mipmap_sample": bound(
+            texel_bytes(stack, grid, levels) + nbytes(grid, levels, out),
+            sampler_ops("mipmap_sample", N * Ho * Wo, C)),
+        "grid_sample": bound(texel_bytes(img, grid) + nbytes(grid, out),
+                             sampler_ops("grid_sample", N * Ho * Wo, C)),
+    }
+    # the PyTorch call that computes K2's function, in each padding mode
+    library = {pm: device_ms(lambda: F.grid_sample(
+        img, grid, mode="bilinear", padding_mode=pm, align_corners=False))
+        for pm in PADDINGS}
+    print("F.grid_sample at N=8 C=3 256->128, device time: " + ", ".join(
+        f"{pm} {ms:.4f} ms" for pm, ms in library.items()))
+    # and K1's: F.grid_sample on the stack as a volume, trilinear
+    volume = as_volume(stack)
+    grid3 = volume_grid(grid, levels, stack.shape[1])
+
+    def k1_library():
+        return F.grid_sample(volume, grid3, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    e = float((k1_library()[:, :, 0] - mipmap_sample(stack, grid, levels))
+              .abs().max())
+    k1_ms = device_ms(k1_library)
+    print(f"F.grid_sample on the stack as a volume (N, C, D, H, W) "
+          f"{tuple(volume.shape)} at N=8 256->128: max abs err vs K1 "
+          f"{e:.3e}, device time {k1_ms:.4f} ms")
+    check(e <= LIBRARY_TOL, "F.grid_sample on the volume is not K1's function")
+    return errs, times, bounds, {"grid_sample": library["border"],
+                                 "mipmap_sample": k1_ms}
 
 
 def make_checkpoint(path):
@@ -572,11 +758,48 @@ def backward_pairs(calls, graph_of):
 
 def backward_times(calls, graph_of, kernel):
     """Device time of a backward kernel on its first recorded launch's
-    inputs, and of the plain version's backward (its graph built once)."""
-    args, _ = calls[0]
+    inputs and of the plain version's backward (its graph built once), the
+    kernel's bound on those inputs, and the device time of the backward of
+    F.grid_sample that computes the same function: on the image for the
+    grid-sample kernels, on the stack as a volume for the mipmap ones."""
+    args, out = calls[0]
     plain_out, inputs, dout = graph_of(args)
+    name = kernel.__name__
+    grid = next(a for a in args if torch.is_tensor(a) and a.shape[-1] == 2)
+    writes = list(out) if isinstance(out, tuple) else [out]
+    # the bytes each must read: of the image or stack, only the taps
+    if name == "mipmap_sample_dcoords":  # stack, grid, levels, dout, pad
+        moved = texel_bytes(*args[:3], args[4]) + nbytes(*args[1:4])
+    elif name == "grid_sample_dgrid":  # img, grid, dout, padding
+        moved = texel_bytes(args[0], grid, padding_mode=args[3]) + \
+            nbytes(*args[1:3])
+    else:
+        moved = nbytes(*(a for a in args if torch.is_tensor(a)))
+    moved += nbytes(*writes)
+    pm = args[-1]
+    if name == "grid_sample_dgrid":
+        x, g = args[0], grid.detach().requires_grad_()
+        wrt = g
+    elif name == "grid_sample_dimg":
+        x = wrt = torch.zeros(args[2], device=grid.device,
+                              requires_grad=True)
+        g = grid
+    elif name == "mipmap_sample_dcoords":
+        x = as_volume(args[0])
+        g = wrt = volume_grid(grid, args[2], x.shape[2]).requires_grad_()
+    else:  # mipmap_sample_dstack: grid, levels, dout, shape, padding
+        N, D, C, H, W = args[3]
+        x = wrt = torch.zeros(N, C, D, H, W, device=grid.device,
+                              requires_grad=True)
+        g = volume_grid(grid, args[1], D)
+    lib_out = F.grid_sample(x, g, padding_mode=pm, align_corners=False)
+    lib_dout = dout[:, :, None] if lib_out.ndim == 5 else dout
     return (device_ms(lambda: kernel(*args)),
             device_ms(lambda: torch.autograd.grad(plain_out, inputs, dout,
+                                                  retain_graph=True)),
+            *bound(moved, sampler_ops(name, grid.numel() // 2,
+                                      dout.shape[1])),
+            device_ms(lambda: torch.autograd.grad(lib_out, (wrt,), lib_dout,
                                                   retain_graph=True)))
 
 
@@ -767,9 +990,12 @@ def train(dev, card):
         "grid_sample_dimg": backward_times(
             k5b, k5b_graph, grid_sample_ops.grid_sample_dimg),
     }
-    for name, (ms_k, ms_p) in times.items():
+    for name, (ms_k, ms_p, b_ms, b_by, lib_ms) in times.items():
+        on = " on the volume" if name.startswith("mipmap") else ""
         print(f"{name} at the train step's shapes, device time: kernel "
-              f"{ms_k:.4f} ms, plain autograd {ms_p:.4f} ms [{card}]")
+              f"{ms_k:.4f} ms, plain autograd {ms_p:.4f} ms, backward of "
+              f"F.grid_sample{on} {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}) [{card}]")
 
     groups = (("K1 mipmap_sample", ("mipmap_sample_kernel",)),
               ("K3 mipmap d/dcoords", ("mipmap_dcoords_kernel",)),
@@ -853,14 +1079,315 @@ def card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what):
           f"{what}: the gradients differ from the CPU path")
 
 
+def synthetic_label(size=128, radius=LABEL_RADIUS):
+    """A dense label in the congealed space of the flagship (flow_size 128
+    px), as load_dense_label returns one: an opaque disc centred in the
+    image with colours that vary smoothly across it, its pixels in
+    row-major order. Returns (points (1, P, 2) x then y, colors (1, P, 3)
+    in [-1, 1], alphas (1, P, 1)) as float32 tensors, and the RGBA image."""
+    c = (size - 1) / 2
+    yy, xx = np.mgrid[:size, :size]
+    ii, jj = np.where((xx - c) ** 2 + (yy - c) ** 2 <= radius ** 2)
+    points = np.stack([jj, ii], -1)[None].astype(np.float32)
+    colors = np.stack([np.sin(jj / 9.0), np.cos(ii / 11.0),
+                       (ii + jj) / (size - 1.0) - 1.0], -1)[None]
+    rgba = np.zeros((size, size, 4), np.uint8)
+    rgba[ii, jj, :3] = np.round((colors[0] + 1) * 127.5).astype(np.uint8)
+    rgba[ii, jj, 3] = 255
+    alphas = np.ones((1, points.shape[1], 1), np.float32)
+    return tuple(torch.from_numpy(a) for a in
+                 (points, colors.astype(np.float32), alphas)), rgba
+
+
+def ar_run(model, frames, label, **kw):
+    """The AR app on ``frames`` with the synthetic label at the eval batch,
+    sigma 1.2, opacity 1, flip inference on."""
+    points, colors, alphas = label
+    return run_gangealing_on_video(model, frames, points=points,
+                                   colors=colors, alphas=alphas,
+                                   sigma=AR_SIGMA, opacity=1.0,
+                                   batch=AR_BATCH, **kw)
+
+
+def check_ar(result, n, keys=("propagated", "congealed")):
+    for key in keys:
+        check(result[key].shape == (n, 3, 256, 256),
+              f"AR {key} shape {result[key].shape}")
+        check(bool(np.isfinite(result[key]).all()),
+              f"AR {key} is not finite")
+
+
+def write_label(rgba, out):
+    """The synthetic label as an RGBA PNG, as the apps read a label."""
+    from PIL import Image
+    label = os.path.join(out, "label.png")
+    Image.fromarray(rgba).save(label)
+    return label
+
+
+def images_run(model, frames, label_png):
+    """apps/propagate_to_images on ``frames`` with the label's own colours
+    (objects=True) at the eval batch, sigma 1.2, opacity 1, flip inference
+    on."""
+    return propagate_to_images(model, frames, label_path=label_png,
+                               sigma=AR_SIGMA, opacity=1.0, batch=AR_BATCH,
+                               objects=True)
+
+
+def check_images(result, n):
+    check_ar(result, n)
+    check(result["average_congealed"].shape == (1, 3, 256, 256)
+          and bool(np.isfinite(result["average_congealed"]).all()),
+          "propagate_to_images: average_congealed")
+
+
+def ar_cli(path, frames, label, out):
+    """python -m gangealing_torch.cli.mixed_reality in process, on a
+    directory of PNG frames with the label as an RGBA PNG."""
+    from PIL import Image
+    fdir = os.path.join(out, "frames_in")
+    os.makedirs(fdir)
+    for i, f in enumerate(frames):
+        Image.fromarray(np.round((f + 1) * 127.5).astype(np.uint8).transpose(
+            1, 2, 0)).save(os.path.join(fdir, f"{i}.png"))
+    t0 = time.perf_counter()
+    result = mixed_reality_cli.main([
+        "--ckpt", path, "--video_path", fdir, "--label_path", label,
+        "--out", os.path.join(out, "visuals"), "--device", "cuda",
+        "--save_correspondences"])
+    seconds = time.perf_counter() - t0
+    check_ar(result, len(frames))
+    for name in ("propagated.mp4", "congealed.mp4", "correspondences.pt"):
+        check(os.path.getsize(os.path.join(out, "visuals", name)) > 0,
+              f"cli.mixed_reality wrote no {name}")
+    print(f"cli.mixed_reality: {len(frames)} PNG frames in {seconds:.2f} s, "
+          "videos and correspondences written")
+
+
+def ar_card_vs_cpu(model, cpu_model, frames, label, label_png):
+    """2 frames through each app on the card and on the port's CPU path."""
+    x = frames[:2]
+    got = ar_run(model, x, label, save_correspondences=True)
+    ref = ar_run(cpu_model, x, label, save_correspondences=True)
+    with torch.inference_mode():
+        flips = [determine_flips(m, torch.from_numpy(x).to(
+            next(m.parameters()).device))[1].cpu() for m in (model, cpu_model)]
+        both = torch.from_numpy(np.concatenate([x, x[..., ::-1]]))
+        flow = cpu_model(both)[2]
+    tv = total_variation_loss(flow, reduce_batch=False)
+    gap = ((tv[:2] - tv[2:]).abs() / tv[:2]).min()
+    pt = float(np.abs(got["correspondences"]
+                      - ref["correspondences"]).max())
+    cong = float(np.abs(got["congealed"] - ref["congealed"]).max())
+    prop = np.abs(got["propagated"] - ref["propagated"])
+    print(f"card vs CPU path, AR app on 2 frames: flips {flips[0].ravel()}"
+          f" vs {flips[1].ravel()} (smallest relative TV gap {gap:.3e}); "
+          f"points {pt:.3e} px, congealed frames {cong:.3e}, propagated "
+          f"frames mean {prop.mean():.3e} max {prop.max():.3e}")
+    check(torch.equal(flips[0], flips[1]), "AR: the flips differ from the "
+          "CPU path")
+    check(pt <= AR_PT_TOL, "AR: the points differ from the CPU path")
+    check(cong <= OUT_TOL, "AR: the congealed frames differ from the CPU "
+          "path")
+    check(prop.mean() <= AR_PROP_MEAN_TOL, "AR: the propagated frames "
+          "differ from the CPU path")
+    got, ref = (images_run(m, x, label_png) for m in (model, cpu_model))
+    cong = float(np.abs(got["congealed"] - ref["congealed"]).max())
+    prop = np.abs(got["propagated"] - ref["propagated"])
+    print(f"card vs CPU path, propagate_to_images on 2 images: congealed "
+          f"{cong:.3e}, propagated mean {prop.mean():.3e} max "
+          f"{prop.max():.3e}")
+    check(cong <= OUT_TOL and prop.mean() <= AR_PROP_MEAN_TOL,
+          "propagate_to_images differs from the CPU path")
+
+
+def propagate_object_checks(model, frames, label, k6_args):
+    """composed_propagate_object at the path's shapes, with its two K6
+    launches held against the plain splat; then the object splat's K6
+    launch again with a quarter of its points moved to -1e6, as that
+    function hides a point that leaves the image. Returns the max abs
+    error and the launches."""
+    dev = next(model.parameters()).device
+    points, colors, alphas = (t.to(dev).repeat(AR_BATCH, 1, 1)
+                              for t in label)
+    points = normalize_points(points, 256, FLAGSHIP.flow_size)
+    sigma = torch.full((AR_BATCH,), AR_SIGMA, device=dev)
+    errs = {}
+    zero_launches()
+    with recorded(splat_ops, "splat2d_cuda") as k6, torch.inference_mode():
+        obj, mask = composed_propagate_object(
+            model, points, colors, alphas,
+            torch.from_numpy(frames[:AR_BATCH]).to(dev), sigma,
+            max_sigma=AR_SIGMA)
+    check(len(k6) == 2 and obj.shape == (AR_BATCH, 3, 256, 256)
+          and mask.shape == (AR_BATCH, 1, 256, 256)
+          and bool(torch.isfinite(obj).all() & torch.isfinite(mask).all()),
+          "composed_propagate_object")
+    hidden = int((k6[0][0][1] == -1e6).all(-1).sum())
+    canvas, coords, values, sig, soft = k6_args
+    coords = coords.clone()
+    coords[:, ::4] = -1e6
+    with recorded(splat_ops, "splat2d_cuda") as k6_hidden:
+        splat_ops.splat2d_cuda(canvas, coords, values, sig, soft)
+    with torch.inference_mode():
+        hold("splat", [(out, splat2d(*a[:4], soft_normalize=a[4],
+                                     max_sigma=AR_SIGMA))
+                       for a, out in k6 + k6_hidden], errs)
+    launches = dict(LAUNCHES)
+    print(f"composed_propagate_object at batch {AR_BATCH}, points "
+          f"{tuple(points.shape)}: {hidden} of {points.shape[0] * points.shape[1]}"
+          f" points hidden at -1e6; the object splat again with "
+          f"{AR_BATCH * len(range(0, coords.shape[1], 4))} points hidden: "
+          f"K6 max abs err vs plain {errs['splat']:.3e}")
+    return errs["splat"], launches
+
+
+def ar_kernels_vs_plain(k1, k2, k6):
+    """Each recorded K1, K2 and K6 launch against its plain version on the
+    inputs it got."""
+    errs = {}
+    with torch.inference_mode():
+        hold("mipmap_sample", [(out, _sample_stack(*a)) for a, out in k1],
+             errs)
+        hold("grid_sample", [(out, grid_sample(a[0], a[1],
+                                               padding_mode=a[2]))
+                             for a, out in k2], errs)
+        hold("splat", [(out, splat2d(*a[:4], soft_normalize=a[4],
+                                     max_sigma=AR_SIGMA))
+                       for a, out in k6], errs)
+    return errs
+
+
+def ar(dev, card):
+    """The AR object-lens path on the card (phase 5)."""
+    d = tempfile.mkdtemp()
+    path = os.path.join(d, "stn.pt")
+    make_checkpoint(path)
+    model, _ = load_stn(path, supersize=256, device=dev)
+    cpu_model, _ = load_stn(path, supersize=256, device="cpu")
+    label, rgba = synthetic_label()
+    P = label[0].shape[1]
+    label_png = write_label(rgba, d)
+    frames = smooth_images(AR_FRAMES, torch.Generator().manual_seed(8)).numpy()
+    print(f"AR label: a disc of radius {LABEL_RADIUS} px, P = {P} points; "
+          f"{AR_FRAMES} frames of 256 px at batch {AR_BATCH}")
+
+    # the main path: every launch count starts at 0 here
+    zero_launches()
+    check_ar(ar_run(model, frames[:AR_BATCH], label), AR_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    check_ar(ar_run(model, frames[AR_BATCH:2 * AR_BATCH], label), AR_BATCH)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    seconds = []
+    for _ in range(SUBWINDOWS):
+        t0 = time.perf_counter()
+        result = ar_run(model, frames, label)
+        seconds.append(time.perf_counter() - t0)
+        check_ar(result, AR_FRAMES)
+    rate = AR_FRAMES * SUBWINDOWS / sum(seconds)
+    with recorded(mipmap_ops, "mipmap_sample") as k1, \
+            recorded(grid_sample_ops, "grid_sample_cuda") as k2, \
+            recorded(splat_ops, "splat2d_cuda") as k6:
+        check_ar(ar_run(model, frames[:AR_BATCH], label), AR_BATCH)
+    check(len(k1) == 6 and len(k2) == 1 and len(k6) == 2,
+          f"an AR batch launched K1 {len(k1)}, K2 {len(k2)}, K6 {len(k6)} "
+          "times; expected 6, 1 and 2")
+    errs = ar_kernels_vs_plain(k1, k2, k6)
+    with recorded(mipmap_ops, "mipmap_sample") as k1_lap, \
+            recorded(grid_sample_ops, "grid_sample_cuda") as k2_lap, \
+            recorded(splat_ops, "splat2d_cuda") as k6_lap:
+        check_ar(ar_run(model, frames[:AR_BATCH], label,
+                        blend_alg="laplacian", overlay_congealed=True),
+                 AR_BATCH)
+    check(len(k6_lap) == 4, f"the overlay batch launched K6 {len(k6_lap)} "
+          "times, expected 4")
+    for k, v in ar_kernels_vs_plain(k1_lap, k2_lap, k6_lap).items():
+        errs[k] = max(errs[k], v)
+    with recorded(mipmap_ops, "mipmap_sample") as k1_img, \
+            recorded(grid_sample_ops, "grid_sample_cuda") as k2_img, \
+            recorded(splat_ops, "splat2d_cuda") as k6_img:
+        check_images(images_run(model, frames[:AR_BATCH], label_png),
+                     AR_BATCH)
+    check(len(k1_img) == 6 and len(k2_img) == 1 and len(k6_img) == 2,
+          f"a propagate_to_images batch launched K1 {len(k1_img)}, K2 "
+          f"{len(k2_img)}, K6 {len(k6_img)} times; expected 6, 1 and 2")
+    for k, v in ar_kernels_vs_plain(k1_img, k2_img, k6_img).items():
+        errs[k] = max(errs[k], v)
+    ar_cli(path, frames[:AR_BATCH], label_png, d)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    batches = 6 + SUBWINDOWS * AR_FRAMES // AR_BATCH
+    print(f"AR main path: {batches} batches of {AR_BATCH} frames (one of "
+          f"them through propagate_to_images); launches {launches}")
+    check(launches["mipmap_sample"] == 6 * batches
+          and launches["grid_sample"] == batches
+          and launches["splat"] == 2 * batches + 2
+          and sum(launches.values()) == 9 * batches + 2,
+          f"the AR path launched {launches}, expected K1 6, K2 1 and K6 2 "
+          "a batch and 2 more K6 for the overlay")
+    print(f"AR kernel launches held against the plain versions: max abs err "
+          f"K1 {errs['mipmap_sample']:.3e}, K2 {errs['grid_sample']:.3e}, K6 "
+          f"{errs['splat']:.3e}; K2's inputs {tuple(k2[0][0][0].shape)} "
+          f"{tuple(k2[0][0][1].shape)}")
+    print(f"AR frames/s: {rate:.1f} over {AR_FRAMES * SUBWINDOWS} frames in "
+          f"{sum(seconds):.2f} s (in {SUBWINDOWS} parts: "
+          f"{', '.join(f'{AR_FRAMES / t:.1f}' for t in seconds)}), peak "
+          f"memory of a batch {peak:.2f} GiB [{card}]")
+
+    ar_card_vs_cpu(model, cpu_model, frames, label, label_png)
+    err, ar_check_launches = propagate_object_checks(model, frames, label,
+                                                     k6[0][0])
+    errs["splat"] = max(errs["splat"], err)
+
+    # K6 against the plain splat at the path's shapes: the object splat
+    # (C=3) and the mask splat (C=1, soft-normalised)
+    times = {}
+    for what, (args, out) in zip(("object", "mask"), k6):
+        ms = device_ms(lambda: splat_ops.splat2d_cuda(*args))
+        kernel_ms = device_ms(lambda: splat_ops.splat2d_cuda(*args),
+                              name="splat_kernel")
+        plain_ms = device_ms(lambda: splat2d(*args[:4], soft_normalize=args[4],
+                                             max_sigma=AR_SIGMA))
+        b_ms, b_by = splat_bound(args, out)
+        times[what] = (ms, plain_ms, b_ms, b_by, None)
+        print(f"K6 {what} splat at the AR path's shapes, canvas "
+              f"{tuple(args[0].shape)}, points {tuple(args[1].shape)}, device "
+              f"time: splat2d_cuda {ms:.4f} ms (K6 alone {kernel_ms:.4f} ms), "
+              f"plain splat2d {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}) "
+              f"[{card}]")
+
+    groups = (("K1 mipmap_sample", ("mipmap_sample_kernel",)),
+              ("K2 grid_sample", ("grid_sample_kernel",)),
+              ("K6 splat", ("splat_kernel",)),
+              ("depthwise FIR convs", ("conv_depthwise2d",)),
+              CONV_GROUP,
+              ("host-device copies", ("memcpy",)),
+              ("pads", ("pad",)),
+              ("gather and index", ("gather", "index")))
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        ar_run(model, frames[:2 * AR_BATCH], label)
+        torch.cuda.synchronize()
+    print_groups(f"batch of {AR_BATCH} frames in the AR app, 2 batches", 2,
+                 *kernel_groups(prof, groups), card, top=4)
+    shutil.rmtree(d)
+    return rate, peak, launches, ar_check_launches, errs, times["object"]
+
+
 def main():
     dev, card = setup()
-    errs, times = kernels_vs_plain(dev)
+    errs, times, bounds, library = kernels_vs_plain(dev)
     rates, peak_gib, launches, path_err = serve(dev, card)
     errs = {k: max(errs[k], path_err[k]) for k in errs}
     train_rate, train_peak, train_launches, check_launches, train_errs, \
         train_times = train(dev, card)
-    for k, v in train_errs.items():
+    ar_rate, ar_peak, ar_launches, ar_check_launches, ar_errs, \
+        splat_times = ar(dev, card)
+    check_launches = {k: check_launches[k] + ar_check_launches[k]
+                      for k in LAUNCHES}
+    for k, v in list(train_errs.items()) + list(ar_errs.items()):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -870,28 +1397,38 @@ def main():
               f"request {peak_gib[b]:.2f} GiB [{card}]")
     print(f"train batch {TRAIN_BATCH}: {train_rate:.1f} imgs/s, peak memory "
           f"of a step {train_peak:.2f} GiB [{card}]")
+    print(f"AR batch {AR_BATCH}: {ar_rate:.1f} frames/s, peak memory of a "
+          f"batch {ar_peak:.2f} GiB [{card}]")
     for name, (ms, plain_ms, call, plain_call) in times.items():
         print(f"{name} at N=8 C=3 256->128, device time: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms; time per call: kernel {call:.4f} ms, "
-              f"plain {plain_call:.4f} ms [{card}]")
-    device_times = {k: v[:2] for k, v in times.items()}
-    device_times.update(train_times)
-    # "launches" counts the main path only: serve and cli.train, each run
-    # with every count zeroed just before it. The backward kernels of the
-    # antialias=False form and of an image that needs a gradient run only in
-    # the side checks, which count under "check_launches".
-    launches = {k: launches[k] + train_launches[k] for k in LAUNCHES}
+              f"plain {plain_call:.4f} ms; bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}) [{card}]")
+    # name: (ms, plain_ms, bound_ms, bound_by, library_ms)
+    measured = {k: (v[0], v[1], *bounds[k], library.get(k))
+                for k, v in times.items()}
+    measured.update(train_times)
+    measured["splat"] = splat_times
+    # "launches" counts the main path only: serve, cli.train and the AR
+    # apps, each run with every count zeroed just before it. The backward
+    # kernels of the antialias=False form and of an image that needs a
+    # gradient run only in the side checks, which count under
+    # "check_launches" with the K6 launches of composed_propagate_object's
+    # check.
+    launches = {k: launches[k] + train_launches[k] + ar_launches[k]
+                for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):
         check(launches[k] == 0 and check_launches[k] > 0,
               f"{k}: {launches[k]} launches on the main path, "
               f"{check_launches[k]} in its check; expected 0 and more")
+    print(card)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "check_launches": check_launches[name],
-         "max_abs_err": errs[name], "ms": device_times[name][0],
-         "plain_ms": device_times[name][1]}
+         "max_abs_err": errs[name], **dict(zip(keys, measured[name]))}
         for name, (src, tpu) in KERNEL_INFO.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

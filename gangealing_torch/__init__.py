@@ -1,10 +1,12 @@
 """gangealing_torch — the PyTorch and CUDA port of gangealing_tpu.
 
-It serves the flagship ComposedSTN congeal forward and trains GANgealing
-(``python -m gangealing_torch.cli.train``) on an NVIDIA H100, through CUDA
-kernels written by hand (``csrc/``): the mipmap and bilinear samplers, their
-forward and backward. On CPU tensors every op runs its plain PyTorch
-version, which the tests hold against the JAX package.
+It serves the flagship ComposedSTN congeal forward, trains GANgealing
+(``python -m gangealing_torch.cli.train``) and runs the AR object lenses
+(``python -m gangealing_torch.cli.mixed_reality``) on an NVIDIA H100,
+through CUDA kernels written by hand (``csrc/``): the mipmap and bilinear
+samplers, forward and backward, and the Gaussian splat. On CPU tensors
+every op runs its plain PyTorch version, which the tests hold against the
+JAX package; the port imports nothing of that package.
 
 The layouts at the public functions are the JAX package's: images NCHW,
 sampling grids (N, Ho, Wo, 2) with x then y, flows (N, H, W, 2).

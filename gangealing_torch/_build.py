@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels into one shared library and bind it.
 
 The sources in ``gangealing_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into ``build/torch_kernels/`` beside the package, at first use.
+``sm_90a`` into ``build/torch_kernels/`` beside the package, at first use:
+one ``nvcc`` per source, all started together, then one link. The build log
+beside the library gives each step's wall seconds.
 The library's file name carries a hash of the sources and the flags, so a
 source change builds a new library. It has a plain C interface and is
 loaded with ``ctypes``: every pointer and the stream are ``c_void_p``.
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -26,12 +30,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # -fmad=false: no multiply-add contraction, so each step rounds as the plain
 # torch version rounds it and kernel and plain version agree to the last bits.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 LAUNCHES = {"grid_sample": 0, "grid_sample_dgrid": 0, "grid_sample_dimg": 0,
             "mipmap_sample": 0, "mipmap_sample_dcoords": 0,
-            "mipmap_sample_dstack": 0}
+            "mipmap_sample_dstack": 0, "splat": 0}
 PADDING_CODES = {"border": 0, "reflection": 1, "zeros": 2}
 
 
@@ -55,24 +58,35 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgangealing_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc_run(what, args):
+    """Run nvcc on ``args``; return its log headed by its wall seconds, or
+    raise with its errors."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return (f"== nvcc {what}: {time.perf_counter() - t0:.2f} s\n"
+            f"{proc.stdout}{proc.stderr}")
+
+
 def _build(lib_path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # Build to a temporary name and rename, so a concurrent or interrupted
-    # build never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    sources = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in sources]
+        with ThreadPoolExecutor(len(sources)) as pool:
+            logs = list(pool.map(_nvcc_run, [s.name for s in sources], [
+                [*NVCC_FLAGS, "-c", "-o", o, str(s)]
+                for o, s in zip(objs, sources)]))
+        # Link to a temporary name and rename, so a concurrent or
+        # interrupted build never leaves a half-written library under the
+        # final name.
+        so = os.path.join(tmp, "lib.so")
+        logs.append(_nvcc_run("link", [*NVCC_FLAGS, "-shared", "-o", so,
+                                       *objs]))
+        lib_path.with_suffix(".log").write_text("".join(logs))
+        os.replace(so, lib_path)
 
 
 @functools.cache
@@ -95,6 +109,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.gg_mipmap_sample_dcoords.restype = i32
     lib.gg_mipmap_sample_dstack.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.gg_mipmap_sample_dstack.restype = i32
+    lib.gg_splat_fwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.gg_splat_fwd.restype = i32
     return lib
 
 

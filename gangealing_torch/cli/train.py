@@ -3,9 +3,10 @@
     python -m gangealing_torch.cli.train --exp-name cats --ckpt cat.pt \
         --load_G_only --padding_mode border --batch 40 --vis_every 0 [...]
 
-The flags are the JAX package's (``base_training_argparse``); ``--batch``
-is the batch of the one card, which is the current CUDA device when one is
-visible and the CPU otherwise. What later slices
+The flags are the JAX package's (``base_training_argparse``, the port's
+copy in cli/args.py) plus ``--device``, default ``cuda``: the run raises
+when no card is visible, and ``--device cpu`` runs it on the CPU.
+``--batch`` is the batch of the one device. What later slices
 port is refused with a message that names the slice: the clustered loss
 (``--num_heads > 1``, ``--flips``), visuals (``--vis_every > 0``), bfloat16,
 an explicit ``--scan_k > 1`` and ``--profile_dir``.
@@ -15,6 +16,8 @@ import os
 
 import torch
 
+from gangealing_torch.apps.common import resolve_device
+from gangealing_torch.cli.args import base_training_argparse
 from gangealing_torch.models.latent_learner import (
     LatentLearner, LatentLearnerConfig)
 from gangealing_torch.models.lpips import (
@@ -22,11 +25,10 @@ from gangealing_torch.models.lpips import (
 from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
 from gangealing_torch.models.stylegan2 import Generator, GeneratorConfig
 from gangealing_torch.train.checkpoint import (
-    find_model, latest_checkpoint, load_checkpoint, module_state,
-    parse_start_iter, resume)
+    latest_checkpoint, load_checkpoint, module_state, parse_start_iter, resume)
 from gangealing_torch.train.loop import cold_start_ll, train_gangealing
 from gangealing_torch.train.state import TrainConfig, TrainState
-from gangealing_tpu.cli.args import base_training_argparse
+from gangealing_torch.utils.download import find_model
 
 
 def check_supported(parser, args):
@@ -102,13 +104,22 @@ def load_perceptual(args, device, rng):
     return model, lambda x, y: loss(model, x, y)
 
 
+def training_argparse():
+    """The JAX package's training flags plus ``--device``."""
+    parser = base_training_argparse()
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on (default cuda; "
+                             "raises when no card is visible)")
+    return parser
+
+
 def main(argv=None):
     """Train as the flags say. Returns (state, generator, perceptual model,
     perceptual_fn) after the last iteration."""
-    parser = base_training_argparse()
+    parser = training_argparse()
     args = parser.parse_args(argv)
     check_supported(parser, args)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     results_path = os.path.join(args.results, args.exp_name)
     os.makedirs(results_path, exist_ok=True)
     if args.auto_resume:
@@ -125,7 +136,7 @@ def main(argv=None):
     perceptual, perceptual_fn = load_perceptual(args, device, rngs[2])
 
     print(f"Loading model from {args.ckpt}")
-    ckpt_path = find_model(args.ckpt)
+    ckpt_path, _ = find_model(args.ckpt)
     ckpt = load_checkpoint(ckpt_path)
     generator = Generator(cfg.g, device=device)
     generator.load_state_dict(module_state(ckpt["g_ema"]), strict=True)

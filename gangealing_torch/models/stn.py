@@ -2,7 +2,8 @@
 STN and the composed STN, as nn.Modules.
 
 Port of gangealing_tpu/models/stn.py (configs, warping heads,
-``stn_forward`` and ``composed_stn_forward``). Parameter names are the
+``stn_forward`` and ``composed_stn_forward``, and the composed STN's point
+functions, flip inference and AR object propagation). Parameter names are the
 reference's torch names, which are also the JAX package's flat keys, so
 ``ComposedSTN.load_state_dict`` takes a JAX parameter dict (through
 io/from_jax.py) or a reference checkpoint's ``t_ema`` strictly.
@@ -17,11 +18,13 @@ from torch import nn
 
 from gangealing_torch.models.layers import (
     ConvLayer, EqualConv2d, EqualLinear, ResBlock)
+from gangealing_torch.ops.flow import total_variation_loss
 from gangealing_torch.ops.grid_sample import (
     affine_grid, grid_sample_auto, identity_grid)
 from gangealing_torch.ops.mipmap import mipmap_warp
 from gangealing_torch.ops.resample import (
     bilinear_downsample, interpolate_bilinear)
+from gangealing_torch.ops.splat import splat2d_auto
 
 
 # ---------------------------------------------------------------------------
@@ -452,3 +455,124 @@ class ComposedSTN(nn.Module):
                 sim_out = out
             warp = fom
         return [out, grid, fom, sim_out, oob]
+
+
+# ---------------------------------------------------------------------------
+# points
+# ---------------------------------------------------------------------------
+
+def normalize_points(points, res, out_res):
+    """[0, out_res-1] pixel coords -> [-1, 1] grid coords
+    (spatial_transformer.py:617-619)."""
+    return (points / (out_res - 1) - 0.5) * 2.0 * ((res - 1) / res)
+
+
+def unnormalize_points(points, res, out_res):
+    """[-1, 1] grid coords -> [0, out_res-1] pixel coords
+    (spatial_transformer.py:621-623)."""
+    return (points / ((res - 1) / res) / 2.0 + 0.5) * (out_res - 1)
+
+
+def convert_points(points, current_res, target_res):
+    points = normalize_points(points, target_res, current_res)
+    return unnormalize_points(points, target_res, target_res)
+
+
+def sample_grid_at_points(grid, points):
+    """Sample an (N, H, W, 2) grid at (N, P, 2) normalized points, bilinear
+    with border padding (spatial_transformer.py:704). On the card the
+    sample is K2, with the grid as a 2-channel image."""
+    g_img = grid.permute(0, 3, 1, 2)  # (N, 2, H, W)
+    pts = points[:, :, None, :].float()  # (N, P, 1, 2)
+    sampled = grid_sample_auto(g_img, pts, padding_mode="border")
+    return sampled[..., 0].permute(0, 2, 1)  # (N, P, 2)
+
+
+def composed_uncongeal_points(model, imgB, points_congealed,
+                              output_resolution=None, iters=1,
+                              unnormalize_output_points=True,
+                              normalize_input_points=False,
+                              return_congealed_img=False, **kwargs):
+    """Map congealed-space points into the images ``imgB``
+    (spatial_transformer.py:141-157): one composed forward, then the final
+    grid sampled at the points. ``kwargs`` go to ``model.forward``."""
+    if normalize_input_points:
+        points_congealed = normalize_points(points_congealed,
+                                            imgB.shape[-1],
+                                            model.cfg.flow_size)
+    out, gridB, _, _, _ = model(imgB, output_resolution=output_resolution,
+                                iters=iters, **kwargs)
+    pointsB = sample_grid_at_points(gridB, points_congealed)
+    if unnormalize_output_points:
+        pointsB = unnormalize_points(pointsB, imgB.shape[-1], imgB.shape[-1])
+    if return_congealed_img:
+        return pointsB, out
+    return pointsB
+
+
+def composed_forward_with_flip(model, input_img, return_flow=False,
+                               return_warp=False, return_inputs=False,
+                               return_flip_indices=False, **kwargs):
+    """Run the images and their mirrors as one batch; keep whichever
+    residual flow is smoother (spatial_transformer.py:200-240)."""
+    both = torch.cat([input_img, input_img.flip(3)], dim=0)
+    out, warp, flow, _, _ = model(both, **kwargs)
+    N = input_img.shape[0]
+    congealed, congealedF = out[:N], out[N:]
+    warp_, warpF = warp[:N], warp[N:]
+    flow_, flowF = flow[:N], flow[N:]
+    tv = total_variation_loss(flow_, reduce_batch=False)
+    tvF = total_variation_loss(flowF, reduce_batch=False)
+    mirror = (tvF < tv).reshape(N, 1, 1, 1)
+    outs = [torch.where(mirror, congealedF, congealed)]
+    if return_warp:
+        warpF = warpF.clone()
+        warpF[..., 0] = warpF[..., 0] * -1.0
+        outs.append(torch.where(mirror[..., None] if warpF.ndim == 5
+                                else mirror, warpF, warp_))
+    if return_flow:
+        outs.append(torch.where(mirror, flowF, flow_))
+    if return_inputs:
+        outs.append(torch.where(mirror, input_img.flip(3), input_img))
+    if return_flip_indices:
+        outs.append(mirror)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def composed_propagate_object(model, congealed_object_points,
+                              congealed_object_values, congealed_mask_values,
+                              target_image, sigma, classifier=None,
+                              max_sigma=8.0, **uncongeal_kwargs):
+    """Propagate a congealed-space RGBA object onto the target images by
+    uncongealing its points and splatting them
+    (spatial_transformer.py:297-366). Returns (object image (N, C, H, W),
+    mask image (N, 1, H, W)).
+
+    The reference's per-image ragged gathers of the visible points become a
+    mask: a point whose rounded position leaves the image moves to -1e6,
+    which the splat skips. ``max_sigma`` bounds the plain splat's window;
+    on the card K6 walks each point's exact window.
+    """
+    if model.cfg.num_heads != 1 or classifier is not None:
+        raise NotImplementedError(
+            "composed_propagate_object with a cluster classifier "
+            "(num_heads > 1) comes with the cluster slice")
+    supersize = target_image.shape[-1]
+    if target_image.shape[-2] != supersize:
+        raise ValueError("square inputs only")
+    propagated = composed_uncongeal_points(
+        model, target_image, congealed_object_points,
+        normalize_input_points=False, unnormalize_output_points=True,
+        **uncongeal_kwargs)  # (N, P, 2)
+    rounded = torch.round(propagated)
+    visible = ((rounded[..., 0] >= 0) & (rounded[..., 1] >= 0)
+               & (rounded[..., 0] < supersize) & (rounded[..., 1] < supersize))
+    propagated = torch.where(visible[..., None], propagated,
+                             torch.full_like(propagated, -1e6))
+    blank_img = torch.zeros_like(target_image)
+    blank_mask = blank_img[:, :1]
+    obj_img = splat2d_auto(blank_img, propagated, congealed_object_values,
+                           sigma, False, max_sigma=max_sigma)
+    mask_img = splat2d_auto(blank_mask, propagated, congealed_mask_values,
+                            sigma, True, max_sigma=max_sigma)
+    return obj_img, mask_img

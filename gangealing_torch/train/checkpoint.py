@@ -6,18 +6,78 @@ t_optim, ll_optim, t_sched, ll_sched, args``; reference train.py:22-28),
 with every tensor on the CPU. The port resumes from its own checkpoints and
 from the JAX package's exports, whose Adam moments are in the same torch
 schema. The pure-Python helpers (scheduler state, checkpoint discovery,
-start iteration, model lookup) are the JAX package's own.
+start iteration) are the port's own copies of the JAX package's
+(gangealing_tpu/train/checkpoint.py:59-86,125-158). A checkpoint name
+resolves through utils/download.find_model alone.
 """
 
 import argparse
+import glob
+import math
+import os
 
 import torch
 
 from gangealing_torch.io.from_jax import params_from_jax
-from gangealing_tpu.io.torch_import import (
+from gangealing_torch.io.torch_import import (
     import_state_dict, learnable_key_order)
-from gangealing_tpu.train.checkpoint import (  # noqa: F401
-    _export_sched_state, find_model, latest_checkpoint, parse_start_iter)
+
+
+def _export_sched_state(base_lr, iteration, anneal_psi, period, tm, decay):
+    """State dict of the reference's DecayingCosineAnnealingWarmRestarts
+    (utils/annealing.py:50-148) at a given training iteration, so that the
+    port's checkpoints restore in the reference's resume path."""
+    epoch = max(0.0, (iteration - anneal_psi) / period)
+    t_0 = 1
+    if epoch >= t_0:
+        if tm == 1:
+            t_cur = epoch % t_0
+            n = int(epoch // t_0)
+            t_i = t_0
+        else:
+            n = int(math.log(epoch / t_0 * (tm - 1) + 1, tm))
+            t_cur = epoch - t_0 * (tm ** n - 1) / (tm - 1)
+            t_i = t_0 * tm ** n
+    else:
+        t_i, t_cur, n = t_0, epoch, 0
+    cur_decay = decay ** n
+    lr = cur_decay * base_lr * (1 + math.cos(math.pi * t_cur / t_i)) / 2 \
+        if iteration > anneal_psi else base_lr
+    return {"T_0": t_0, "T_i": t_i, "T_mult": tm, "eta_min": 0,
+            "decay": decay, "cur_decay": cur_decay, "base_lrs": [base_lr],
+            "last_epoch": math.floor(epoch), "T_cur": t_cur,
+            "_step_count": int(iteration), "_last_lr": [lr],
+            "_get_lr_called_within_step": False}
+
+
+def latest_checkpoint(results_path: str):
+    """Newest iteration-numbered .pt under <results>/checkpoints, or None
+    (``--auto_resume``: rerunning the same command picks up where the last
+    save left off)."""
+    best = None
+    best_iter = -1
+    for p in glob.glob(os.path.join(results_path, "checkpoints", "*.pt")):
+        stem = os.path.splitext(os.path.basename(p))[0]
+        try:
+            i = int(stem)
+        except ValueError:
+            continue
+        if i > best_iter:
+            best, best_iter = p, i
+    return best
+
+
+def parse_start_iter(ckpt_path: str) -> int:
+    """The start iteration from the checkpoint's file name
+    (train.py:245-253)."""
+    name = os.path.basename(ckpt_path)
+    if name.startswith("best_"):
+        name = name[5:]
+    stem = os.path.splitext(name)[0]
+    try:
+        return int(stem)
+    except ValueError:
+        return 0
 
 
 def _cpu(obj):

@@ -2,7 +2,7 @@
 
 Port of gangealing_tpu/train/loop.py (reference train.py:31-266) without the
 mesh, the k-step scan, visuals and the profiler: per iteration the psi and
-the learning rates from gangealing_tpu/train/annealing.py, z and the
+the learning rates from train/annealing.py, z and the
 generator's noise from a generator seeded by the iteration, one train step,
 scalars into ``scalars.jsonl``, checkpoints every ``ckpt_every`` iterations
 and at every zero of the learning rate. The cold start fits the latent
@@ -18,7 +18,7 @@ import torch
 from gangealing_torch.models.latent_learner import fit_pca
 from gangealing_torch.train.checkpoint import save_checkpoint
 from gangealing_torch.train.state import TrainState, train_step
-from gangealing_tpu.train.annealing import (
+from gangealing_torch.train.annealing import (
     lr_cycle_iters, lr_used_at_iter, psi_at_iter)
 
 PCA_CHUNK = 10000  # W latents made per generator call of the cold start

@@ -3,7 +3,7 @@
 Port of gangealing_tpu/train/state.py (reference train.py:31-171): the loss,
 its backward, an Adam step for the STN and one for the latent learner, and
 the EMA of the STN. Learning rates are set on every step from the schedule
-(``lr_used_at_iter`` of gangealing_tpu/train/annealing.py).
+(``lr_used_at_iter`` of train/annealing.py).
 
 Each Adam takes its module's parameters in ``learnable_key_order``, the
 order of the reference module's ``parameters()``, so that its state_dict
@@ -21,7 +21,7 @@ from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
 from gangealing_torch.models.stylegan2 import GeneratorConfig
 from gangealing_torch.ops.flow import flow_identity_loss, total_variation_loss
 from gangealing_torch.train.losses import gangealing_loss
-from gangealing_tpu.io.torch_import import learnable_key_order
+from gangealing_torch.io.torch_import import learnable_key_order
 
 EMA_ACCUM = 0.5 ** (32 / (10 * 1000))  # train.py:77
 

@@ -14,6 +14,7 @@ the launch counts:
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import re
 import subprocess
 import sys
 from importlib import import_module
@@ -50,11 +51,10 @@ def _inputs(seed, N=2, C=3, H=32, out=16):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without loading JAX (the training
-    modules with the JAX package's schedules, flags and checkpoint helpers
-    they reuse), and so do load_stn's own import of the checkpoint reader
-    and the model zoo (here on a path that does not exist, which it reports
-    as such) and the training CLI's parsing of its flags."""
+    """Every module of the port imports without loading JAX or any module
+    of the JAX package, and so do load_stn (here on a path that does not
+    exist, which it reports as such) and the CLIs' parsing of their
+    flags."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
@@ -63,21 +63,40 @@ def test_port_imports_no_jax():
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "from gangealing_torch.apps.common import load_stn\n"
             "try:\n"
-            "    load_stn('no/such/stn.pt')\n"
+            "    load_stn('no/such/stn.pt', device='cpu')\n"
             "    raise SystemExit('load_stn loaded a missing file')\n"
             "except FileNotFoundError as e:\n"
             "    assert 'no/such/stn.pt' in str(e), e\n"
-            "from gangealing_torch.cli.train import base_training_argparse\n"
-            "a = base_training_argparse().parse_args(\n"
+            "from gangealing_torch.cli.train import training_argparse\n"
+            "a = training_argparse().parse_args(\n"
             "    ['--exp-name', 'x', '--ckpt', 'g.pt', '--batch', '40'])\n"
-            "assert a.batch == 40\n"
+            "assert a.batch == 40 and a.device == 'cuda'\n"
+            "from gangealing_torch.cli.mixed_reality import "
+            "mixed_reality_argparse\n"
+            "a = mixed_reality_argparse().parse_args(\n"
+            "    ['--ckpt', 'g.pt', '--video_path', 'v.mp4'])\n"
+            "assert a.batch == 50 and a.device == 'cuda'\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m.startswith('jaxlib'))\n"
+            "or m.startswith(('jax.', 'jaxlib', 'gangealing_tpu')))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 20
+    assert len(modules) >= 30
+
+
+def test_port_sources_import_nothing_of_jax():
+    """No line of the port's modules or of chip_smoke.py imports jax or
+    the JAX package, at top level or inside a function."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gangealing_tpu)"
+                         r"\b")
+    files = sorted((REPO / "gangealing_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pattern.match(line)]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("padding_mode", PADDINGS)

@@ -278,7 +278,8 @@ def test_load_stn_reference_schema(tmp_path, monkeypatch, small_params,
     monkeypatch.setattr(tcommon, "stn_config_from_args",
                         lambda a, supersize=None: dataclasses.replace(
                             build(a, supersize), max_channels=32))
-    model, cfg = tcommon.load_stn(str(path), supersize=128)
+    model, cfg = tcommon.load_stn(str(path), supersize=128,
+                                  device="cpu")
     assert cfg == tstn.ComposedSTNConfig(**SMALL)
     assert not model.training
     with torch.no_grad():

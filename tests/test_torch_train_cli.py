@@ -27,7 +27,8 @@ def _argv(tmp, iters, *extra):
             "--iter", str(iters), "--anneal_psi", "2", "--period", "1",
             "--ndirs", "2", "--inject", "3", "--debug", "--log_every", "1",
             "--ckpt_every", "2", "--vis_every", "0", "--padding_mode",
-            "border", "--stn_channel_multiplier", "0.25", *extra]
+            "border", "--stn_channel_multiplier", "0.25", "--device", "cpu",
+            *extra]
 
 
 def _scalars(tmp):
@@ -50,7 +51,7 @@ def small_widths(monkeypatch):
 
 
 def test_cli_train_and_auto_resume(tmp_path, small_widths):
-    args = tcli.base_training_argparse().parse_args(_argv(tmp_path, 2))
+    args = tcli.training_argparse().parse_args(_argv(tmp_path, 2))
     g = tg.Generator(tcli.build_configs(args).g,
                      generator=torch.Generator().manual_seed(0))
     torch.save({"g_ema": g.state_dict()}, tmp_path / "g.pt")
@@ -98,7 +99,7 @@ def test_cli_perceptual_weights_load_or_raise(tmp_path, prefix):
     sd = {prefix + k.split(".", 1)[1]: v
           for k, v in src.net.state_dict().items()}
     torch.save(sd, tmp_path / "vgg.pt")
-    args = tcli.base_training_argparse().parse_args(
+    args = tcli.training_argparse().parse_args(
         _argv(tmp_path, 2, "--perceptual_weights", str(tmp_path / "vgg.pt")))
     if prefix == "module.":
         with pytest.raises(ValueError, match="missing"):
@@ -107,3 +108,13 @@ def test_cli_perceptual_weights_load_or_raise(tmp_path, prefix):
     model, _ = tcli.load_perceptual(args, "cpu", torch.Generator())
     for k, v in src.net.state_dict().items():
         assert torch.equal(model.net.state_dict()[k], v), k
+
+
+def test_cli_train_needs_a_card_unless_asked(tmp_path, monkeypatch):
+    """--device defaults to cuda; with no card visible the run raises
+    instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tcli.training_argparse().parse_args(
+        ["--exp-name", "x", "--ckpt", "g.pt"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(_argv(tmp_path, 2, "--device", "cuda"))
