@@ -18,9 +18,13 @@ Phases:
      one antialias=False forward, and the kernel launch counts of that run;
      then each kernel launch of a served forward held against its plain
      version on the inputs the forward gave it (K1 at batch 40 and 128, K2
-     at 40), batch-4 forwards with and without anti-aliasing held against
-     the port's CPU path (out 5e-4, grid and flow 1e-4), and the device
-     time of a few forwards by kernel group with the idle share;
+     at 40); K1 timed on those inputs beside its plain version,
+     F.grid_sample on the full-resolution volume and its bound on the
+     pyramid, and the whole mipmap warp's device time (levels, pyramid,
+     K1) on the same inputs; batch-4 forwards with and without
+     anti-aliasing held against the port's CPU path (out 5e-4, grid and
+     flow 1e-4), and the device time of a few forwards by kernel group
+     with the idle share;
   4. training, the reference's LSUN-cats run (scripts/training/
      lsun_cats_ssl.sh: 256px StyleGAN2 with 512-dim latents and 8 mapping
      layers, the flagship STN, vgg_ssl, tv_weight 1000, border padding,
@@ -30,11 +34,13 @@ Phases:
      resumed), K1 and K3 twice per step and K5a never; the perceptual term
      alone reaching the identity-initialised similarity head; each K1 and
      K3 launch of a step from the trained state and of one from the
-     identity init, each K2 and K4 launch of an antialias=False step and
+     identity init, K3 again on the first with every level a float step
+     below an integer, each K2 and K4 launch of an antialias=False step and
      each K5a and K5b launch of a forward whose input needs a gradient held
      against the plain versions and their autograd (1e-5 scaled by
      max(1, max|ref|)); train imgs/s over about 5 s and the peak memory of
-     a step; the device time of a step by kernel group with the idle
+     a step; the device time of each head's mipmap warp and its backward to
+     the grid; the device time of a step by kernel group with the idle
      share; and one step's loss and gradients on the card against the
      port's CPU path at batch 2, from the trained state and from the
      identity init (TRAIN_GRAD_TOL, TRAIN_GRAD_L2_TOL);
@@ -60,11 +66,14 @@ Phases:
      shapes, and the device time of a batch by kernel group with the idle
      share;
   6. rates, and each kernel's device time (torch.profiler) beside its
-     plain version's, its bound on the card (the bytes of an image or stack
-     that these grids must read counted as the distinct texels their taps
-     reach) and the time of the PyTorch call that computes the same
-     function where there is one (F.grid_sample, on the stack as a volume
-     for the mipmap kernels), each beside the card; the kernels line, whose
+     plain version's, its bound on the card (the bytes of an image that
+     these grids must read counted as the distinct texels their taps reach;
+     for K1 and K3 those of the native-resolution pyramid that their
+     rebuilt taps reach) and the time of the PyTorch call that computes the
+     same function where there is one (F.grid_sample, on the full-resolution
+     stack as a volume for the mipmap kernels), each beside the card; K1's
+     figures are those of a served batch-128 forward, per launch, and the
+     N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train and the AR apps) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
@@ -99,6 +108,7 @@ from gangealing_torch.cli import mixed_reality as mixed_reality_cli
 from gangealing_torch.cli import train as train_cli
 from gangealing_torch.models.latent_learner import LatentLearner
 from gangealing_torch.models.lpips import make_perceptual_loss
+from gangealing_torch.models import stn as stn_ops
 from gangealing_torch.models.stn import (
     ComposedSTN, ComposedSTNConfig, composed_propagate_object,
     normalize_points)
@@ -110,8 +120,8 @@ from gangealing_torch.ops.flow import total_variation_loss
 from gangealing_torch.ops.grid_sample import (
     affine_grid, grid_sample, grid_sample_auto, grid_sample_cuda)
 from gangealing_torch.ops.mipmap import (
-    _build_stack, _mipmap_warp_fold, _sample_stack, mipmap_levels,
-    mipmap_sample, mipmap_warp)
+    _build_pyramid, _mipmap_warp_fold, _rebuild_stack, _sample_pyramid,
+    mipmap_levels, mipmap_sample, mipmap_warp)
 from gangealing_torch.ops.resample import interpolate_bilinear
 from gangealing_torch.ops.splat import splat2d
 from gangealing_torch.train import checkpoint as train_ckpt
@@ -220,20 +230,24 @@ def call_ms(fn, iters=20, warmup=3):
 def device_ms(fn, iters=20, name=None):
     """Device time per call of ``fn`` in ms: the summed time of the kernels
     one call launches (those whose name holds ``name``, if given), from
-    torch.profiler over ``iters`` calls."""
+    torch.profiler over ``iters`` calls. A profile that saw no device
+    time (the tracer now and then drops a whole window) is taken again,
+    up to three times."""
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (name is None or name in e.key))
-    check(us > 0, "the profiler saw no device time")
-    return us / 1e3 / iters
+    for _ in range(3):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (name is None or name in e.key))
+        if us > 0:
+            return us / 1e3 / iters
+    raise AssertionError("the profiler saw no device time")
 
 
 def card_line():
@@ -315,6 +329,70 @@ def texel_bytes(image, grid, levels=None, padding_mode="border"):
     return torch.unique(torch.cat(keys)).numel() * C * image.element_size()
 
 
+def pyramid_texel_bytes(image_shape, grid, levels, padding_mode="border",
+                        dcoords=False):
+    """Bytes of a native-resolution Gaussian pyramid of an image of
+    ``image_shape`` (N, C, H, W) that a mipmap sample at ``grid`` and
+    ``levels`` must read: each full-resolution tap that a point reaches with
+    a nonzero weight, on its floor and ceil levels (with ``dcoords`` also on
+    the levels next to an integer level, whose tent has a slope there),
+    rebuilt from the distinct texels of its native (Hp/2^d, Wp/2^d) level
+    that interpolate_bilinear weighs with a nonzero weight (on level 0 the
+    tap itself). Hp, Wp: the size reflect-padded to a power of 2, as the
+    pyramid stores it. C float32 values each."""
+    check(padding_mode in ("border", "zeros"), f"texels: {padding_mode}")
+    N, C, H, W = image_shape
+    size = 2 ** math.ceil(math.log2(W))
+    lp = (size - W) // 2
+    D = 4
+    ix = ((grid[..., 0] + 1) * W - 1) / 2
+    iy = ((grid[..., 1] + 1) * H - 1) / 2
+    if padding_mode == "border":
+        ix, iy = ix.clamp(0, W - 1), iy.clamp(0, H - 1)
+    f = levels.floor()
+    ls = [f, levels.ceil()]
+    if dcoords:
+        # the level tent's kinks: f - 1 and f + 1 at an integer level, and
+        # f + 2 where |level - (f + 2)| rounds to 1
+        whole = levels == f
+        kink = levels - (f + 2) == -1
+        ls += [torch.where(whole, levels - 1, f).clamp(min=0),
+               torch.where(whole, levels + 1, f).clamp(max=D - 1),
+               torch.where(kink, f + 2, f).clamp(max=D - 1)]
+    n = torch.arange(N, device=grid.device).view(N, 1, 1)
+
+    def coarse(i, d):
+        """The coarse indices a full-resolution index i of level d reads
+        with a nonzero weight: r0 always, r1 where its weight is not 0."""
+        hc = size // 2 ** d
+        src = ((i + lp + 0.5) * 2.0 ** -d - 0.5).clamp(min=0)
+        src = torch.minimum(src, hc - 1.0)
+        r0 = src.floor()
+        r1 = torch.minimum(r0 + 1, hc - 1.0)
+        return ((r0, torch.ones_like(r0, dtype=torch.bool)),
+                (r1, src > r0))
+
+    keys = []
+    for lv in ls:
+        d = lv.long()
+        for y in (iy.floor(), iy.ceil()):
+            for x in (ix.floor(), ix.ceil()):
+                inside = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
+                for r, rw in coarse(y.clamp(0, H - 1), d):
+                    for c, cw in coarse(x.clamp(0, W - 1), d):
+                        key = (((n * D + d) * size + r.long()) * size
+                               + c.long())
+                        keys.append(key[inside & rw & cw])
+    return torch.unique(torch.cat(keys)).numel() * C * 4
+
+
+def image_shape(pyramid):
+    """(N, C, H, W) of the image a pyramid was built from."""
+    shape = pyramid.shape
+    return (pyramid.level0.shape[0], shape.channels, shape.height,
+            shape.width)
+
+
 def as_volume(stack):
     """A stack (N, D, C, H, W) as F.grid_sample's volume (N, C, D, H, W)."""
     return stack.permute(0, 2, 1, 3, 4).contiguous()
@@ -389,7 +467,7 @@ def kernel_inputs(dev):
 
 def kernels_vs_plain(dev):
     img, grid, levels = kernel_inputs(dev)
-    stack = torch.stack(_build_stack(img, 4), dim=1)
+    pyramid = _build_pyramid(img, 4)
     errs = {"mipmap_sample": 0.0, "grid_sample": 0.0}
     for pm in PADDINGS:
         e1 = float((mipmap_warp(img, grid, padding_mode=pm)
@@ -405,20 +483,22 @@ def kernels_vs_plain(dev):
         errs["mipmap_sample"] = max(errs["mipmap_sample"], e1)
         errs["grid_sample"] = max(errs["grid_sample"], e2)
     calls = {
-        "mipmap_sample": (lambda: mipmap_sample(stack, grid, levels),
-                          lambda: _sample_stack(stack, grid, levels, "border")),
+        "mipmap_sample": (lambda: mipmap_sample(pyramid, grid, levels),
+                          lambda: _sample_pyramid(pyramid, grid, levels,
+                                                  "border")),
         "grid_sample": (lambda: grid_sample_cuda(img, grid),
                         lambda: grid_sample(img, grid)),
     }
     # device time of the kernel(s) and time per call, kernel then plain
     times = {name: (device_ms(k), device_ms(p), call_ms(k), call_ms(p))
              for name, (k, p) in calls.items()}
-    N, C, Ho, Wo = mipmap_sample(stack, grid, levels).shape
+    N, C, Ho, Wo = mipmap_sample(pyramid, grid, levels).shape
     out = torch.empty(N, C, Ho, Wo, device=dev)
     # the bytes each must read: the taps these grids and levels reach
     bounds = {
         "mipmap_sample": bound(
-            texel_bytes(stack, grid, levels) + nbytes(grid, levels, out),
+            pyramid_texel_bytes(img.shape, grid, levels)
+            + nbytes(grid, levels, out),
             sampler_ops("mipmap_sample", N * Ho * Wo, C)),
         "grid_sample": bound(texel_bytes(img, grid) + nbytes(grid, out),
                              sampler_ops("grid_sample", N * Ho * Wo, C)),
@@ -429,15 +509,17 @@ def kernels_vs_plain(dev):
         for pm in PADDINGS}
     print("F.grid_sample at N=8 C=3 256->128, device time: " + ", ".join(
         f"{pm} {ms:.4f} ms" for pm, ms in library.items()))
-    # and K1's: F.grid_sample on the stack as a volume, trilinear
-    volume = as_volume(stack)
-    grid3 = volume_grid(grid, levels, stack.shape[1])
+    # and K1's: F.grid_sample on the full-resolution stack as a volume,
+    # trilinear
+    volume = as_volume(_rebuild_stack(pyramid))
+    grid3 = volume_grid(grid, levels, pyramid.shape.num_levels)
 
     def k1_library():
         return F.grid_sample(volume, grid3, mode="bilinear",
                              padding_mode="border", align_corners=False)
 
-    e = float((k1_library()[:, :, 0] - mipmap_sample(stack, grid, levels))
+    e = float((k1_library()[:, :, 0]
+               - mipmap_sample(pyramid, grid, levels))
               .abs().max())
     k1_ms = device_ms(k1_library)
     print(f"F.grid_sample on the stack as a volume (N, C, D, H, W) "
@@ -488,9 +570,9 @@ def recorded(module, name):
     fn = getattr(module, name)
     calls = []
 
-    def record(*args):
-        out = fn(*args)
-        calls.append((args, out))
+    def record(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append((args + tuple(kw.values()), out))
         return out
 
     setattr(module, name, record)
@@ -503,30 +585,105 @@ def recorded(module, name):
 def kernels_at_path_shapes(model, no_aa, requests):
     """Each kernel launch of one served forward against its plain version on
     the very inputs the forward gave it: K1 in both heads at batch 40 and
-    128, K2 in both heads of the antialias=False forward at batch 40."""
+    128, K2 in both heads of the antialias=False forward at batch 40.
+    Returns the errors, and K1's recorded launches and the mipmap warps'
+    inputs by batch size."""
     def plain_k2(img, grid, padding_mode):
         return grid_sample(img, grid, padding_mode=padding_mode)
 
-    cases = [("mipmap_sample", mipmap_ops, "mipmap_sample", _sample_stack,
+    cases = [("mipmap_sample", mipmap_ops, "mipmap_sample", _sample_pyramid,
               model, b) for b in BATCHES]
     cases.append(("grid_sample", grid_sample_ops, "grid_sample_cuda",
                   plain_k2, no_aa, 40))
     err = {"mipmap_sample": 0.0, "grid_sample": 0.0}
+    k1_calls, warps = {}, {}
     for name, module, entry, plain, m, b in cases:
-        with recorded(module, entry) as calls:
+        with recorded(module, entry) as calls, \
+                recorded(stn_ops, "mipmap_warp") as warp_calls:
             check_outputs(congeal(m, requests[b][0]), b)
         check(len(calls) == 2, f"{name}: {len(calls)} launches in one "
               "forward, expected 2")
+        if name == "mipmap_sample":
+            k1_calls[b], warps[b] = calls, [a for a, _ in warp_calls]
         for head, (args, out) in zip(("similarity", "flow"), calls):
             with torch.inference_mode():
                 e = float((out - plain(*args)).abs().max())
-            shapes = " ".join(str(tuple(a.shape)) for a in args[:-1])
+            shapes = " ".join(str(tuple(a.shape)) for a in args
+                              if torch.is_tensor(a))
             print(f"{name} in the {head} head at batch {b}, inputs {shapes}: "
                   f"max abs err vs plain {e:.3e}")
             check(e <= KERNEL_TOL, f"{name} disagrees with its plain version "
                   f"in the {head} head at batch {b}")
             err[name] = max(err[name], e)
-    return err
+    return err, k1_calls, warps
+
+
+def warp_ms(img, grid, padding_mode, backward=False):
+    """Device time (ms) of one mipmap warp on these inputs (levels, Gaussian
+    levels, sample), and of its mipmap kernels alone; with ``backward``, of
+    the warp and its backward to the grid, as a train step takes it."""
+    if backward:
+        g = grid.detach().requires_grad_()
+        cot = torch.randn(img.shape[0], img.shape[1], *grid.shape[1:3],
+                          device=img.device,
+                          generator=torch.Generator(img.device).manual_seed(9))
+
+        def fn():
+            return torch.autograd.grad(
+                mipmap_warp(img, g, padding_mode=padding_mode), g, cot)
+    else:
+        def fn():
+            with torch.inference_mode():
+                return mipmap_warp(img, grid, padding_mode=padding_mode)
+    return device_ms(fn), device_ms(fn, name="mipmap")
+
+
+def k1_at_path_shapes(k1_calls, warps, card):
+    """K1, its plain version and F.grid_sample on the volume, with K1's
+    bounds, on the inputs each head of a served forward gave K1 at batch 40
+    and 128; and the whole warp's device time on the same inputs. Returns
+    the batch-128 figures per launch, averaged over the two heads."""
+    rows = {}
+    for b in BATCHES:
+        for head, (args, out), wargs in zip(("similarity", "flow"),
+                                            k1_calls[b], warps[b]):
+            pyramid, grid, levels, pm = args
+            img = wargs[0]
+            with torch.inference_mode():
+                ms = device_ms(lambda: mipmap_sample(*args))
+                plain_ms = device_ms(lambda: _sample_pyramid(*args))
+                stack = _rebuild_stack(pyramid)
+                volume = as_volume(stack)
+                grid3 = volume_grid(grid, levels, pyramid.shape.num_levels)
+                lib_ms = device_ms(lambda: F.grid_sample(
+                    volume, grid3, mode="bilinear", padding_mode=pm,
+                    align_corners=False))
+                io = nbytes(grid, levels, out)
+                stack_b = bound(texel_bytes(stack, grid, levels, pm) + io,
+                                sampler_ops("mipmap_sample", levels.numel(),
+                                            out.shape[1]))
+                del volume, grid3, stack
+                pyr_b = bound(pyramid_texel_bytes(img.shape, grid, levels, pm)
+                              + io, sampler_ops("mipmap_sample",
+                                                levels.numel(), out.shape[1]))
+                # the warp's two parts in torch ops
+                lv_ms = device_ms(lambda: mipmap_levels(
+                    grid, *img.shape[-2:], 3.5))
+                build_ms = device_ms(lambda: _build_pyramid(
+                    img, pyramid.shape.num_levels))
+            w_ms, w_k_ms = warp_ms(img, grid, pm)
+            print(f"K1 in the {head} head at batch {b}, levels "
+                  f"{float(levels.min()):.2f}-{float(levels.max()):.2f}, "
+                  f"device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.grid_sample on the volume {lib_ms:.4f} ms; bound on the "
+                  f"pyramid {pyr_b[0]:.4f} ms ({pyr_b[1]}), on the stack "
+                  f"{stack_b[0]:.4f} ms; the whole warp {w_ms:.4f} ms: "
+                  f"levels {lv_ms:.4f} ms, pyramid {build_ms:.4f} ms, its "
+                  f"mipmap kernels {w_k_ms:.4f} ms [{card}]")
+            rows[b, head] = (ms, plain_ms, *pyr_b, lib_ms)
+    return tuple(
+        (rows[128, "similarity"][i] + rows[128, "flow"][i]) / 2
+        if i != 3 else rows[128, "flow"][i] for i in range(5))
 
 
 def kernel_groups(prof, groups):
@@ -569,7 +726,7 @@ def where_time_goes(model, requests, card):
     by kernel group, and the device's idle share: the part of the span from
     the first kernel's start to the last kernel's end in which no kernel
     ran (one stream, so kernels do not overlap)."""
-    groups = (("K1 mipmap_sample", ("mipmap_sample",)),
+    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
               ("K2 grid_sample", ("grid_sample_kernel",)),
               ("depthwise FIR convs", ("conv_depthwise2d",)),
               CONV_GROUP,
@@ -680,7 +837,10 @@ def serve(dev, card):
           f"grid-sample kernel launched {launches['grid_sample']} times in "
           "one antialias=False forward, expected 2")
 
-    path_err = kernels_at_path_shapes(model, no_aa, requests)
+    path_err, k1_calls, warps = kernels_at_path_shapes(model, no_aa,
+                                                       requests)
+    k1_path = k1_at_path_shapes(k1_calls, warps, card)
+    del k1_calls, warps
     g4 = torch.Generator().manual_seed(2)
     card_vs_cpu(model, cpu_model,
                 torch.rand(4, 3, 256, 256, generator=g4) * 2 - 1,
@@ -688,7 +848,7 @@ def serve(dev, card):
     card_vs_cpu(no_aa, cpu_no_aa, smooth_images(4, g4),
                 "antialias=False forward, smooth images")
     where_time_goes(model, requests, card)
-    return rates, peak_gib, launches, path_err
+    return rates, peak_gib, launches, path_err, k1_path
 
 
 def train_argv(results, gpath):
@@ -721,10 +881,10 @@ def hold(name, pairs, errs):
 # Each takes a backward kernel's recorded arguments and returns the plain
 # version's output, the inputs to differentiate it by, and the cotangent.
 def k3_graph(a):
-    stack, grid, levels, dout, pm = a
+    pyramid, grid, levels, dout, pm = a
     g = grid.detach().requires_grad_()
     lv = levels.detach().requires_grad_()
-    return _sample_stack(stack, g, lv, pm), (g, lv), dout
+    return _sample_pyramid(pyramid, g, lv, pm), (g, lv), dout
 
 
 def k4_graph(a):
@@ -736,7 +896,7 @@ def k4_graph(a):
 def k5a_graph(a):
     grid, levels, dout, stack_shape, pm = a
     s = torch.zeros(stack_shape, device=grid.device, requires_grad=True)
-    return _sample_stack(s, grid, levels, pm), (s,), dout
+    return mipmap_ops._sample_stack(s, grid, levels, pm), (s,), dout
 
 
 def k5b_graph(a):
@@ -768,8 +928,12 @@ def backward_times(calls, graph_of, kernel):
     grid = next(a for a in args if torch.is_tensor(a) and a.shape[-1] == 2)
     writes = list(out) if isinstance(out, tuple) else [out]
     # the bytes each must read: of the image or stack, only the taps
-    if name == "mipmap_sample_dcoords":  # stack, grid, levels, dout, pad
-        moved = texel_bytes(*args[:3], args[4]) + nbytes(*args[1:4])
+    if name == "mipmap_sample_dcoords":
+        # pyramid, grid, levels, dout, padding: the pyramid's texels that
+        # the levels with a nonzero tent or tent slope reach
+        moved = pyramid_texel_bytes(image_shape(args[0]), *args[1:3],
+                                    args[4], dcoords=True) + \
+            nbytes(*args[1:4])
     elif name == "grid_sample_dgrid":  # img, grid, dout, padding
         moved = texel_bytes(args[0], grid, padding_mode=args[3]) + \
             nbytes(*args[1:3])
@@ -785,7 +949,7 @@ def backward_times(calls, graph_of, kernel):
                               requires_grad=True)
         g = grid
     elif name == "mipmap_sample_dcoords":
-        x = as_volume(args[0])
+        x = as_volume(_rebuild_stack(args[0]))
         g = wrt = volume_grid(grid, args[2], x.shape[2]).requires_grad_()
     else:  # mipmap_sample_dstack: grid, levels, dout, shape, padding
         N, D, C, H, W = args[3]
@@ -917,24 +1081,38 @@ def train(dev, card):
     st_id = TrainState(cfg, copy.deepcopy(t_id), copy.deepcopy(state.ll))
     for what, st in (("trained state", state), ("identity init", st_id)):
         with recorded(mipmap_ops, "mipmap_sample") as k1, \
-                recorded(mipmap_ops, "mipmap_sample_dcoords") as k3:
+                recorded(mipmap_ops, "mipmap_sample_dcoords") as k3, \
+                recorded(stn_ops, "mipmap_warp") as warps:
             step(st)
         check(len(k1) == 2 and len(k3) == 2, f"a step from the {what} did "
               "not launch K1 and K3 twice")
         if what == "trained state":
-            k3_trained = k3
+            k3_trained, warps_trained = k3, warps
         step_errs = {}
         with torch.no_grad():
-            hold("mipmap_sample", [(out, _sample_stack(*a)) for a, out in k1],
+            hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
                  step_errs)
         hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), step_errs)
         for k, v in step_errs.items():
             errs[k] = max(errs.get(k, 0.0), v)
         print(f"K1 and K3 launches of a train step from the {what}, inputs "
-              f"{tuple(k3[0][0][0].shape)} {tuple(k3[0][0][1].shape)}: max "
+              f"{tuple(k3[0][0][0].level0.shape)} {tuple(k3[0][0][1].shape)}: max "
               f"abs err K1 {step_errs['mipmap_sample']:.3e}, K3 "
               f"{step_errs['mipmap_sample_dcoords']:.3e}")
     k3 = k3_trained
+    # K3 where every level lies one float step below an integer: there
+    # |level - (f + 2)| rounds to 1, the kink of level f + 2's tent
+    pyramid, grid, lv, dout, pm = k3[0][0]
+    below = torch.nextafter(torch.round(lv) + 1, torch.zeros_like(lv))
+    args = (pyramid, grid, below.contiguous(), dout, pm)
+    step_errs = {}
+    hold("mipmap_sample_dcoords", backward_pairs(
+        [(args, mipmap_ops.mipmap_sample_dcoords(*args))], k3_graph),
+        step_errs)
+    errs["mipmap_sample_dcoords"] = max(errs["mipmap_sample_dcoords"],
+                                        step_errs["mipmap_sample_dcoords"])
+    print(f"K3 on those inputs with every level a float step below an "
+          f"integer: max abs err {step_errs['mipmap_sample_dcoords']:.3e}")
 
     # antialias=False: K2 forward, K4 backward
     no_aa_cfg = dataclasses.replace(cfg, t=dataclasses.replace(
@@ -990,6 +1168,13 @@ def train(dev, card):
         "grid_sample_dimg": backward_times(
             k5b, k5b_graph, grid_sample_ops.grid_sample_dimg),
     }
+    for head, (args, _) in zip(("similarity", "flow"), warps_trained):
+        img, grid, _, pm = args
+        w_ms, w_k_ms = warp_ms(img.detach(), grid.detach(), pm, backward=True)
+        print(f"the mipmap warp and its backward to the grid in the {head} "
+              f"head of a train step at batch {TRAIN_BATCH}, inputs "
+              f"{tuple(img.shape)} {tuple(grid.shape)}, device time: "
+              f"{w_ms:.4f} ms, its mipmap kernels {w_k_ms:.4f} ms [{card}]")
     for name, (ms_k, ms_p, b_ms, b_by, lib_ms) in times.items():
         on = " on the volume" if name.startswith("mipmap") else ""
         print(f"{name} at the train step's shapes, device time: kernel "
@@ -997,8 +1182,8 @@ def train(dev, card):
               f"F.grid_sample{on} {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}) [{card}]")
 
-    groups = (("K1 mipmap_sample", ("mipmap_sample_kernel",)),
-              ("K3 mipmap d/dcoords", ("mipmap_dcoords_kernel",)),
+    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
+              ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
               ("depthwise FIR convs", ("conv_depthwise2d",)),
               CONV_GROUP,
               ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
@@ -1247,7 +1432,7 @@ def ar_kernels_vs_plain(k1, k2, k6):
     inputs it got."""
     errs = {}
     with torch.inference_mode():
-        hold("mipmap_sample", [(out, _sample_stack(*a)) for a, out in k1],
+        hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
              errs)
         hold("grid_sample", [(out, grid_sample(a[0], a[1],
                                                padding_mode=a[2]))
@@ -1357,7 +1542,7 @@ def ar(dev, card):
               f"plain splat2d {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}) "
               f"[{card}]")
 
-    groups = (("K1 mipmap_sample", ("mipmap_sample_kernel",)),
+    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
               ("K2 grid_sample", ("grid_sample_kernel",)),
               ("K6 splat", ("splat_kernel",)),
               ("depthwise FIR convs", ("conv_depthwise2d",)),
@@ -1379,7 +1564,7 @@ def ar(dev, card):
 def main():
     dev, card = setup()
     errs, times, bounds, library = kernels_vs_plain(dev)
-    rates, peak_gib, launches, path_err = serve(dev, card)
+    rates, peak_gib, launches, path_err, k1_path = serve(dev, card)
     errs = {k: max(errs[k], path_err[k]) for k in errs}
     train_rate, train_peak, train_launches, check_launches, train_errs, \
         train_times = train(dev, card)
@@ -1400,13 +1585,16 @@ def main():
     print(f"AR batch {AR_BATCH}: {ar_rate:.1f} frames/s, peak memory of a "
           f"batch {ar_peak:.2f} GiB [{card}]")
     for name, (ms, plain_ms, call, plain_call) in times.items():
-        print(f"{name} at N=8 C=3 256->128, device time: kernel {ms:.4f} ms, "
+        print(f"{name} at the toy size N=8 C=3 256->128, device time: kernel "
+              f"{ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms; time per call: kernel {call:.4f} ms, "
               f"plain {plain_call:.4f} ms; bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]}) [{card}]")
     # name: (ms, plain_ms, bound_ms, bound_by, library_ms)
     measured = {k: (v[0], v[1], *bounds[k], library.get(k))
                 for k, v in times.items()}
+    # K1 on the main path's inputs: a batch-128 forward, per launch
+    measured["mipmap_sample"] = k1_path
     measured.update(train_times)
     measured["splat"] = splat_times
     # "launches" counts the main path only: serve, cli.train and the AR

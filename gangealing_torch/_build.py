@@ -103,10 +103,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.gg_grid_sample_dgrid.restype = i32
     lib.gg_grid_sample_dimg.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
     lib.gg_grid_sample_dimg.restype = i32
-    lib.gg_mipmap_sample_fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
-    lib.gg_mipmap_sample_fwd.restype = i32
-    lib.gg_mipmap_sample_dcoords.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-    lib.gg_mipmap_sample_dcoords.restype = i32
+    lib.gg_mipmap_pyramid_fwd.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
+    lib.gg_mipmap_pyramid_fwd.restype = i32
+    lib.gg_mipmap_pyramid_dcoords.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
+    lib.gg_mipmap_pyramid_dcoords.restype = i32
     lib.gg_mipmap_sample_dstack.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.gg_mipmap_sample_dstack.restype = i32
     lib.gg_splat_fwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]

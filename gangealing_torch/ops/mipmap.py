@@ -1,20 +1,25 @@
 """Mipmap-anti-aliased warping (the quality core of the STN sampler).
 
 Port of gangealing_tpu/ops/mipmap.py. ``_mipmap_warp_fold`` is the plain
-PyTorch version. On CUDA, ``mipmap_warp`` builds the Gaussian stack and the
-levels with plain torch ops and samples the stack through ``MipmapSample``,
-an autograd Function over the kernels of csrc/mipmap_sample.cu: the forward
-(K1) replaces gangealing_tpu/ops/pallas_mipmap.py::_fwd_kernel, its
-backward the ``_dcoords_kernel`` (K3, d/dgrid and d/dlevels) and
-``_dimg_kernel`` (K5a, d/dstack). Autograd chains d/dlevels through
-``mipmap_levels`` and d/dstack through ``_build_stack``, as the JAX package
-chains its kernels through ``_band_tent_coords``.
+PyTorch version. On CUDA, ``mipmap_warp`` builds the levels and a
+native-resolution Gaussian pyramid (``_build_pyramid``: the blur chain,
+no upsampling) with plain torch ops and samples the pyramid through
+``MipmapSample``, an autograd Function over the kernels of
+csrc/mipmap_sample.cu, which rebuild each full-resolution tap from the
+native levels: the forward (K1) replaces
+gangealing_tpu/ops/pallas_mipmap.py::_fwd_kernel, its backward the
+``_dcoords_kernel`` (K3, d/dgrid and d/dlevels) and ``_dimg_kernel`` (K5a,
+d/dstack, mapped to d/dpyramid). ``_sample_pyramid`` is their plain
+version. Autograd chains d/dlevels through ``mipmap_levels`` and
+d/dpyramid through the blur chain, as the JAX package chains its kernels
+through ``_band_tent_coords``.
 
 The plain version differentiates as ``jax.grad`` of the JAX fold path does,
 ties included (clamps and the level tent at integer levels).
 """
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -57,34 +62,118 @@ def _max_coord_distance(coords):
 
 def mipmap_levels(grid, height, width, max_num_levels):
     """Per-pixel mipmap level from the sampling grid (N, H, W, 2)."""
-    x = (width - 1.0) * (grid[..., 0] + 1.0) / 2.0
-    y = (height - 1.0) * (grid[..., 1] + 1.0) / 2.0
-    coords = torch.stack([x, y], dim=3)
+    # (size - 1) * (g + 1) / 2 as the JAX package forms it, to the bit: the
+    # halving is exact whichever side of the product it falls on
+    scale = grid.new_tensor([(width - 1.0) / 2.0, (height - 1.0) / 2.0])
+    coords = (grid + 1.0) * scale
     levels = torch.log2(_max_coord_distance(coords))
     return jclip(levels, 0.0, max_num_levels - 1.0)
+
+
+def _pad_to_power_of_2(x):
+    """Reflect-pad (N, C, H, W) on both axes by the amounts that bring the
+    width to the next power of 2, as the Gaussian levels are built. Returns
+    the padded tensor and the left and right pads."""
+    size = x.shape[-1]
+    log_size = math.log2(size)
+    if float(log_size).is_integer():
+        return x, 0, 0
+    total = int(2 ** math.ceil(log_size)) - size
+    lp = total // 2
+    rp = total - lp
+    return F.pad(x, (lp, rp, lp, rp), mode="reflect"), lp, rp
 
 
 def _build_stack(x, num_levels):
     """Gaussian stack: level i is blurred (cumulatively downsampled 2x then
     bilinearly upsampled back). Non-power-of-2 inputs reflect-padded first.
     Returns list of (N, C, H, W) tensors, length num_levels."""
-    log_size = math.log2(x.shape[-1])
-    pad_needed = not float(log_size).is_integer()
-    if pad_needed:
-        target = int(2 ** math.ceil(log_size))
-        total = target - x.shape[-1]
-        lp = total // 2
-        rp = total - lp
-        x = F.pad(x, (lp, rp, lp, rp), mode="reflect")
+    x, lp, rp = _pad_to_power_of_2(x)
     levels = [x]
     cur = x
     full = x.shape[-1]
     for _ in range(1, num_levels):
         cur = _gaussian_blur_2x(cur)
         levels.append(interpolate_bilinear(cur, full, full))
-    if pad_needed:
+    if lp or rp:
         levels = [lv[:, :, lp:-rp, lp:-rp] for lv in levels]
     return levels
+
+
+class PyramidShape(NamedTuple):
+    """The geometry of a ``Pyramid``: ``num_levels`` levels of ``channels``
+    channels, level d of side ``size >> d``; the warp samples the
+    (height, width) crop at offset ``lp`` of every level's full-resolution
+    rebuild."""
+    num_levels: int
+    channels: int
+    height: int
+    width: int
+    size: int
+    lp: int
+
+    def sides(self):
+        return [self.size >> d for d in range(self.num_levels)]
+
+    def texel(self):
+        """Floats per texel of the coarse levels: the channels, zero-padded
+        to whole float4 groups."""
+        return 4 * -(-self.channels // 4)
+
+
+class Pyramid(NamedTuple):
+    """A Gaussian pyramid at native resolution. ``level0`` (N, C, S, S) is
+    the input reflect-padded to S = ``shape.size`` (the input itself when
+    its side is a power of 2); ``coarse`` (N, L) holds levels 1.. of each
+    image, packed as [level][row][column][channel] with the channels padded
+    to ``shape.texel()``."""
+    level0: torch.Tensor
+    coarse: torch.Tensor
+    shape: PyramidShape
+
+
+def _build_pyramid(x, num_levels):
+    """Native-resolution Gaussian pyramid of a square (N, C, H, H) image:
+    level 0 is the input (padded as ``_build_stack`` pads it), level d is
+    ``_gaussian_blur_2x`` applied d times, at its own (size / 2^d)^2. No
+    level is upsampled."""
+    N, C, H, W = x.shape
+    if H != W:
+        raise ValueError(f"the Gaussian levels need a square image, got "
+                         f"{H}x{W}")
+    level0, lp, _ = _pad_to_power_of_2(x)
+    shape = PyramidShape(num_levels, C, H, W, level0.shape[-1], lp)
+    if shape.sides()[-1] < 1:
+        raise ValueError(f"{num_levels} levels need a side of at least "
+                         f"{2 ** (num_levels - 1)}, got {W}")
+    coarse, cur = [], level0
+    for _ in range(1, num_levels):
+        cur = _gaussian_blur_2x(cur)
+        texels = F.pad(cur.permute(0, 2, 3, 1), (0, shape.texel() - C))
+        coarse.append(texels.reshape(N, -1))
+    return Pyramid(level0.contiguous(), torch.cat(coarse, dim=1), shape)
+
+
+def _pyramid_levels(pyramid):
+    """The levels of a pyramid, each as (N, C, side, side)."""
+    level0, coarse, shape = pyramid
+    N, C, t = coarse.shape[0], shape.channels, shape.texel()
+    sides = shape.sides()[1:]
+    parts = coarse.split([s * s * t for s in sides], dim=1)
+    return [level0] + [p.reshape(N, s, s, t)[..., :C].permute(0, 3, 1, 2)
+                       for p, s in zip(parts, sides)]
+
+
+def _rebuild_stack(pyramid):
+    """The full-resolution Gaussian stack (N, D, C, H, W) of a pyramid,
+    equal to ``_build_stack``'s: every level d >= 1 upsampled by
+    ``interpolate_bilinear``, then the crop."""
+    shape = pyramid.shape
+    full, lp = shape.size, shape.lp
+    levels = [lv if d == 0 else interpolate_bilinear(lv, full, full)
+              for d, lv in enumerate(_pyramid_levels(pyramid))]
+    stack = torch.stack(levels, dim=1)
+    return stack[..., lp:lp + shape.height, lp:lp + shape.width]
 
 
 def _sample_stack(stack, grid, levels, padding_mode):
@@ -111,96 +200,150 @@ def _mipmap_warp_fold(inputs, grid, num_levels, levels, padding_mode):
     return _sample_stack(stack, grid, levels, padding_mode)
 
 
+def _sample_pyramid(pyramid, grid, levels, padding_mode):
+    """The plain version of K1 and K3: rebuild the full-resolution stack of
+    a pyramid and sample it with ``_sample_stack``."""
+    return _sample_stack(_rebuild_stack(pyramid), grid, levels, padding_mode)
+
+
+def _pyramid_grad(pyramid, dstack):
+    """d/dlevel0 and d/dcoarse from d/dstack: the adjoint of
+    ``_rebuild_stack`` (the crop and each level's ``interpolate_bilinear``),
+    as torch ops."""
+    with torch.enable_grad():
+        level0 = pyramid.level0.detach().requires_grad_()
+        coarse = pyramid.coarse.detach().requires_grad_()
+        stack = _rebuild_stack(Pyramid(level0, coarse, pyramid.shape))
+        return torch.autograd.grad(stack, (level0, coarse), dstack)
+
+
 class MipmapSample(torch.autograd.Function):
-    """Sample a Gaussian stack at per-point levels on the card: K1 forward;
-    the backward launches K3 for d/dgrid and d/dlevels and K5a for
-    d/dstack, each only when its inputs need a gradient."""
+    """Sample a pyramid at per-point levels on the card: K1 forward; the
+    backward launches K3 for d/dgrid and d/dlevels, and K5a for d/dstack,
+    mapped to d/dlevel0 and d/dcoarse by ``_pyramid_grad``, each only when
+    its inputs need a gradient."""
 
     @staticmethod
-    def forward(ctx, stack, grid, levels, padding_mode):
-        ctx.save_for_backward(stack, grid, levels)
+    def forward(ctx, level0, coarse, shape, grid, levels, padding_mode):
+        ctx.save_for_backward(level0, coarse, grid, levels)
+        ctx.shape = shape
         ctx.padding_mode = padding_mode
-        return mipmap_sample(stack, grid, levels, padding_mode)
+        return mipmap_sample(Pyramid(level0, coarse, shape), grid, levels,
+                             padding_mode)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        stack, grid, levels = ctx.saved_tensors
+        level0, coarse, grid, levels = ctx.saved_tensors
+        pyramid = Pyramid(level0, coarse, ctx.shape)
         dout = dout.contiguous()
-        dstack = dgrid = dlevels = None
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dgrid, dlevels = mipmap_sample_dcoords(stack, grid, levels, dout,
-                                                   ctx.padding_mode)
-        if ctx.needs_input_grad[0]:
-            dstack = mipmap_sample_dstack(grid, levels, dout, stack.shape,
+        dlevel0 = dcoarse = dgrid = dlevels = None
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            dgrid, dlevels = mipmap_sample_dcoords(pyramid, grid, levels,
+                                                   dout, ctx.padding_mode)
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            shape = ctx.shape
+            stack_shape = (level0.shape[0], shape.num_levels, shape.channels,
+                           shape.height, shape.width)
+            dstack = mipmap_sample_dstack(grid, levels, dout, stack_shape,
                                           ctx.padding_mode)
-        return dstack, dgrid, dlevels, None
+            dlevel0, dcoarse = _pyramid_grad(pyramid, dstack)
+        return dlevel0, dcoarse, None, dgrid, dlevels, None
 
 
-def _check_stack_operands(stack, grid, levels):
-    device = stack.device
-    _build.check_operand("stack", stack, 5, device)
+def _check_pyramid_operands(pyramid, grid, levels):
+    level0, coarse, shape = pyramid
+    device = level0.device
+    _build.check_operand("level0", level0, 4, device)
+    _build.check_operand("coarse", coarse, 2, device)
     _build.check_operand("grid", grid, 4, device)
     _build.check_operand("levels", levels, 3, device)
-    N, D = stack.shape[:2]
+    N = level0.shape[0]
     Ho, Wo = _check_grid(grid, N)
     if tuple(levels.shape) != (N, Ho, Wo):
         raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
-    if D < 2:
-        raise ValueError(f"the stack needs at least 2 levels, got {D}")
+    if shape.num_levels < 2:
+        raise ValueError(f"the pyramid needs at least 2 levels, got "
+                         f"{shape.num_levels}")
+    S, C = shape.size, shape.channels
+    per_image = sum(shape.texel() * s * s for s in shape.sides()[1:])
+    if tuple(level0.shape) != (N, C, S, S) or \
+            tuple(coarse.shape) != (N, per_image):
+        raise ValueError(f"a pyramid of {shape} for {N} images has level 0 "
+                         f"{(N, C, S, S)} and coarse levels {(N, per_image)}"
+                         f", got {tuple(level0.shape)} and "
+                         f"{tuple(coarse.shape)}")
+    if coarse.data_ptr() % 16:
+        raise ValueError("the coarse levels must be 16-byte aligned")
     return Ho, Wo
 
 
-def mipmap_sample(stack, grid, levels, padding_mode="border"):
-    """K1: sample a Gaussian stack at per-point levels, on the card.
+def _pyramid_args(pyramid):
+    shape = pyramid.shape
+    return (pyramid.level0.shape[0], shape.num_levels, shape.channels,
+            shape.size, shape.height, shape.width, shape.lp)
 
-    stack (N, D, C, H, W) with D >= 2, grid (N, Ho, Wo, 2), levels
-    (N, Ho, Wo): contiguous float32 CUDA tensors on one device. Returns
-    (N, C, Ho, Wo) float32, equal to ``_sample_stack``.
+
+def mipmap_sample(pyramid, grid, levels, padding_mode="border"):
+    """K1: sample a ``Pyramid`` (``_build_pyramid``) at per-point levels, on
+    the card.
+
+    The pyramid's tensors, grid (N, Ho, Wo, 2) and levels (N, Ho, Wo):
+    contiguous float32 CUDA tensors on one device, at least 2 levels.
+    Returns (N, C, Ho, Wo) float32, equal to ``_sample_pyramid`` to a few
+    units in the last place.
     """
-    Ho, Wo = _check_stack_operands(stack, grid, levels)
-    device = stack.device
-    N, D, C, H, W = stack.shape
-    code = _build.padding_code(padding_mode)
-    out = torch.empty((N, C, Ho, Wo), device=device, dtype=torch.float32)
+    Ho, Wo = _check_pyramid_operands(pyramid, grid, levels)
+    device = grid.device
+    out = torch.empty((grid.shape[0], pyramid.shape.channels, Ho, Wo),
+                      device=device, dtype=torch.float32)
     lib = _build.load_kernels()
-    _build.launch("mipmap_sample", lib.gg_mipmap_sample_fwd, stack.data_ptr(),
-                  grid.data_ptr(), levels.data_ptr(), out.data_ptr(), N, D, C,
-                  H, W, Ho * Wo, code, device.index, _build.stream_of(device))
+    _build.launch("mipmap_sample", lib.gg_mipmap_pyramid_fwd,
+                  pyramid.level0.data_ptr(), pyramid.coarse.data_ptr(),
+                  grid.data_ptr(), levels.data_ptr(), out.data_ptr(),
+                  *_pyramid_args(pyramid), Ho, Wo,
+                  _build.padding_code(padding_mode), device.index,
+                  _build.stream_of(device))
     return out
 
 
-def mipmap_sample_dcoords(stack, grid, levels, dout, padding_mode="border"):
+def mipmap_sample_dcoords(pyramid, grid, levels, dout, padding_mode="border"):
     """K3: the gradients of ``mipmap_sample`` with respect to the grid
     (N, Ho, Wo, 2) and the levels (N, Ho, Wo), given ``dout`` (N, C, Ho, Wo)
     on the card."""
-    Ho, Wo = _check_stack_operands(stack, grid, levels)
-    device = stack.device
-    N, D, C, H, W = stack.shape
-    _check_dout(dout, N, C, Ho, Wo, device)
-    code = _build.padding_code(padding_mode)
+    Ho, Wo = _check_pyramid_operands(pyramid, grid, levels)
+    device = grid.device
+    _check_dout(dout, grid.shape[0], pyramid.shape.channels, Ho, Wo, device)
     dgrid = torch.empty_like(grid)
     dlevels = torch.empty_like(levels)
     lib = _build.load_kernels()
-    _build.launch("mipmap_sample_dcoords", lib.gg_mipmap_sample_dcoords,
-                  stack.data_ptr(), grid.data_ptr(), levels.data_ptr(),
-                  dout.data_ptr(), dgrid.data_ptr(), dlevels.data_ptr(), N, D,
-                  C, H, W, Ho * Wo, code, device.index,
+    _build.launch("mipmap_sample_dcoords", lib.gg_mipmap_pyramid_dcoords,
+                  pyramid.level0.data_ptr(), pyramid.coarse.data_ptr(),
+                  grid.data_ptr(), levels.data_ptr(), dout.data_ptr(),
+                  dgrid.data_ptr(), dlevels.data_ptr(),
+                  *_pyramid_args(pyramid), Ho, Wo,
+                  _build.padding_code(padding_mode), device.index,
                   _build.stream_of(device))
     return dgrid, dlevels
 
 
 def mipmap_sample_dstack(grid, levels, dout, stack_shape,
                          padding_mode="border"):
-    """K5a: the gradient of ``mipmap_sample`` with respect to the stack, of
-    ``stack_shape`` (N, D, C, H, W), given ``dout`` on the card. A scatter
-    with atomicAdd: the order of the sums, and so the last bits, change from
-    run to run."""
+    """K5a: the gradient of a mipmap sample with respect to the
+    full-resolution stack of ``stack_shape`` (N, D, C, H, W), given ``dout``
+    on the card. A scatter with atomicAdd: the order of the sums, and so
+    the last bits, change from run to run."""
     device = grid.device
     N, D, C, H, W = stack_shape
-    dstack = torch.zeros((N, D, C, H, W), device=device, dtype=torch.float32)
-    Ho, Wo = _check_stack_operands(dstack, grid, levels)
+    if D < 2:
+        raise ValueError(f"the stack needs at least 2 levels, got {D}")
+    _build.check_operand("grid", grid, 4, device)
+    _build.check_operand("levels", levels, 3, device)
+    Ho, Wo = _check_grid(grid, N)
+    if tuple(levels.shape) != (N, Ho, Wo):
+        raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
     _check_dout(dout, N, C, Ho, Wo, device)
+    dstack = torch.zeros((N, D, C, H, W), device=device, dtype=torch.float32)
     code = _build.padding_code(padding_mode)
     lib = _build.load_kernels()
     _build.launch("mipmap_sample_dstack", lib.gg_mipmap_sample_dstack,
@@ -215,7 +358,8 @@ def mipmap_warp(inputs, grid, max_num_levels=3.5, padding_mode="border"):
 
     inputs: (N, C, H, W); grid: (N, Ho, Wo, 2) normalized to [-1, 1].
     A CPU tensor takes the plain ``_mipmap_warp_fold``; a CUDA tensor
-    samples through ``MipmapSample``, which launches the kernels or raises.
+    builds the native-resolution pyramid and samples it through
+    ``MipmapSample``, which launches the kernels or raises.
     """
     N, C, H, W = inputs.shape
     num_levels = int(math.ceil(max_num_levels - 1.0)) + 1
@@ -225,6 +369,7 @@ def mipmap_warp(inputs, grid, max_num_levels=3.5, padding_mode="border"):
     if inputs.device.type == "cpu":
         return _mipmap_warp_fold(inputs, grid, num_levels, levels,
                                  padding_mode)
-    stack = torch.stack(_build_stack(inputs, num_levels), dim=1)
-    return MipmapSample.apply(stack, grid.contiguous(), levels.contiguous(),
-                              padding_mode).to(inputs.dtype)
+    level0, coarse, shape = _build_pyramid(inputs, num_levels)
+    return MipmapSample.apply(level0, coarse, shape, grid.contiguous(),
+                              levels.contiguous(), padding_mode
+                              ).to(inputs.dtype)

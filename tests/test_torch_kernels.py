@@ -86,12 +86,13 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_nothing_of_jax():
-    """No line of the port's modules or of chip_smoke.py imports jax or
-    the JAX package, at top level or inside a function."""
+    """No line of the port's modules, of chip_smoke.py or of
+    chip_mipmap_variants.py imports jax or the JAX package, at top level or
+    inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gangealing_tpu)"
                          r"\b")
     files = sorted((REPO / "gangealing_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "chip_mipmap_variants.py"]
     bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -119,9 +120,8 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     before = dict(LAUNCHES)
     with pytest.raises(ValueError, match="must be on"):
         tgs.grid_sample_cuda(x, g)
-    stack = torch.stack(tmm._build_stack(x, 4), dim=1)
     with pytest.raises(ValueError, match="must be on"):
-        tmm.mipmap_sample(stack, g, g[..., 0].contiguous())
+        tmm.mipmap_sample(tmm._build_pyramid(x, 4), g, g[..., 0].contiguous())
     assert LAUNCHES == before
 
 
@@ -176,17 +176,23 @@ def test_grid_sample_kernel_matches_plain(cuda, padding_mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 48])
 @pytest.mark.parametrize("padding_mode", PADDINGS)
-def test_mipmap_kernel_matches_plain(cuda, padding_mode):
-    img, grid = _inputs(4, N=3, C=5, H=64, out=32)
+def test_mipmap_kernel_matches_plain(cuda, padding_mode, size):
+    """K1 through mipmap_warp against the fold path, at a power-of-2 size
+    and at one the pyramid reflect-pads, with an output that is no multiple
+    of the kernel's 32 x 4 tile, at 5 channels and at 3."""
+    img, grid = _inputs(4, N=3, C=5, H=size, out=35)
     x, g = torch.from_numpy(img).to(cuda), torch.from_numpy(grid).to(cuda)
-    before = LAUNCHES["mipmap_sample"]
-    out = tmm.mipmap_warp(x, g, padding_mode=padding_mode)
-    torch.cuda.synchronize()
-    assert LAUNCHES["mipmap_sample"] == before + 1
-    levels = tmm.mipmap_levels(g, 64, 64, 3.5)
-    ref = tmm._mipmap_warp_fold(x, g, 4, levels, padding_mode)
-    assert float((out - ref).abs().max()) <= 1e-5
+    levels = tmm.mipmap_levels(g, size, size, 3.5)
+    for c in (5, 3):  # any channel count, and the kernel's unrolled form
+        xc = x[:, :c].contiguous()
+        before = LAUNCHES["mipmap_sample"]
+        out = tmm.mipmap_warp(xc, g, padding_mode=padding_mode)
+        torch.cuda.synchronize()
+        assert LAUNCHES["mipmap_sample"] == before + 1
+        ref = tmm._mipmap_warp_fold(xc, g, 4, levels, padding_mode)
+        assert float((out - ref).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -199,9 +205,19 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tgs.grid_sample_cuda(x, g.transpose(1, 2))
     with pytest.raises(ValueError, match="padding_mode"):
         tgs.grid_sample_cuda(x, g, "wrap")
-    stack = torch.zeros(1, 1, 3, 8, 8, device=cuda)
+    levels = torch.zeros(1, 4, 4, device=cuda)
+    one_level = tmm.Pyramid(x, torch.zeros(1, 0, device=cuda),
+                            tmm.PyramidShape(1, 3, 8, 8, 8, 0))
     with pytest.raises(ValueError, match="2 levels"):
-        tmm.mipmap_sample(stack, g, torch.zeros(1, 4, 4, device=cuda))
+        tmm.mipmap_sample(one_level, g, levels)
+    pyramid = tmm._build_pyramid(x, 3)
+    with pytest.raises(ValueError, match="a pyramid of"):
+        tmm.mipmap_sample(pyramid._replace(coarse=pyramid.coarse[:, 4:]),
+                          g, levels)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tmm.mipmap_sample(pyramid._replace(
+            coarse=torch.zeros(1, pyramid.coarse.shape[1] + 1,
+                               device=cuda)[:, 1:]), g, levels)
 
 
 def _grad_inputs(seed, cuda, N, C, H, out, kind):
@@ -244,25 +260,41 @@ def test_grid_sample_backward_kernels_match_plain(cuda, padding_mode, kind):
 @pytest.mark.parametrize("kind", ["identity", "affine"])
 @pytest.mark.parametrize("padding_mode", PADDINGS)
 def test_mipmap_backward_kernels_match_plain(cuda, padding_mode, kind):
-    """K3 (d/dgrid, d/dlevels) and K5a (d/dstack) against the plain
-    autograd of _sample_stack, at the warp's levels and at integer ones."""
+    """K3 (d/dgrid, d/dlevels) and K5a (d/dstack, mapped to the pyramid's
+    level 0 and coarse levels) against the plain autograd of
+    _sample_pyramid, at the warp's levels, at integer ones and one float
+    step below them (where |level - (f + 2)| rounds to the tent's kink),
+    with 5 channels and with 3 (the kernels' unrolled form)."""
     x, g, cot = _grad_inputs(6, cuda, 3, 5, 64, 32, kind)
-    stack = torch.stack(tmm._build_stack(x, 4), dim=1).contiguous()
+    level0, coarse, shape = tmm._build_pyramid(x, 4)
     levels = tmm.mipmap_levels(g, 64, 64, 3.5)
-    for lv in (levels, torch.round(levels * 1.2)):
+    whole = torch.round(levels * 1.2)
+    below = torch.nextafter(whole, torch.full_like(whole, -1.0)).clamp(min=0)
+    for lv in (levels, whole, below):
         lv = lv.contiguous()
-        args = (stack.requires_grad_(), g.requires_grad_(),
-                lv.requires_grad_())
-        ref = torch.autograd.grad(tmm._sample_stack(*args, padding_mode),
-                                  args, cot)
+        args = (level0.requires_grad_(), coarse.requires_grad_(),
+                g.requires_grad_(), lv.requires_grad_())
+        ref = torch.autograd.grad(
+            tmm._sample_pyramid(tmm.Pyramid(*args[:2], shape), *args[2:],
+                                padding_mode), args, cot)
         before = dict(LAUNCHES)
         ours = torch.autograd.grad(
-            tmm.MipmapSample.apply(*args, padding_mode), args, cot)
+            tmm.MipmapSample.apply(*args[:2], shape, *args[2:], padding_mode),
+            args, cot)
         torch.cuda.synchronize()
         assert (LAUNCHES["mipmap_sample_dcoords"]
                 == before["mipmap_sample_dcoords"] + 1)
         assert (LAUNCHES["mipmap_sample_dstack"]
                 == before["mipmap_sample_dstack"] + 1)
+        for o, r in zip(ours, ref):
+            assert _scaled_err(o, r) <= 1e-5
+        three = tmm._build_pyramid(x[:, :3].contiguous(), 4)
+        gl = (g.detach().requires_grad_(), lv.detach().requires_grad_())
+        ref = torch.autograd.grad(
+            tmm._sample_pyramid(three, *gl, padding_mode), gl, cot[:, :3])
+        ours = tmm.mipmap_sample_dcoords(three, *(t.detach() for t in gl),
+                                         cot[:, :3].contiguous(),
+                                         padding_mode)
         for o, r in zip(ours, ref):
             assert _scaled_err(o, r) <= 1e-5
 
@@ -282,3 +314,19 @@ def test_backward_launches_only_what_is_needed(cuda):
     assert LAUNCHES["mipmap_sample_dstack"] == before["mipmap_sample_dstack"]
     assert LAUNCHES["grid_sample_dimg"] == before["grid_sample_dimg"]
     assert float(g.grad.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_mipmap_warp_image_grad_matches_fold(cuda, padding_mode):
+    """d/dimage of the whole warp on the card (K5a, the rebuild's adjoint
+    and the blur chain) against the fold path's autograd, at a size the
+    pyramid reflect-pads."""
+    x, g, cot = _grad_inputs(8, cuda, 2, 3, 48, 24, "affine")
+    x.requires_grad_()
+    ours = torch.autograd.grad(tmm.mipmap_warp(x, g, padding_mode=padding_mode),
+                               x, cot)[0]
+    levels = tmm.jmax(tmm.mipmap_levels(g, 48, 48, 3.5), 0.0)
+    ref = torch.autograd.grad(
+        tmm._mipmap_warp_fold(x, g, 4, levels, padding_mode), x, cot)[0]
+    assert _scaled_err(ours, ref) <= 1e-5
