@@ -56,22 +56,30 @@ Phases:
      frames, one batch of apps/propagate_to_images (objects=True, the label
      read from an RGBA PNG) with its launches held the same way, and
      python -m gangealing_torch.cli.mixed_reality in process on a directory
-     of PNG frames; K1 6, K2 1 and K6 2 launches a batch (2 more with the
-     overlay); then 2 frames of each app on the card against the port's
-     CPU path (points 0.05 px, congealed frames 5e-4, equal flips,
-     propagated frames within 1e-3 in mean absolute error);
-     models/stn.composed_propagate_object at batch 50 and the object splat
-     with a quarter of its points hidden at -1e6, each K6 launch held
-     against the plain splat; K6 against the plain splat at the path's
-     shapes, and the device time of a batch by kernel group with the idle
-     share;
-  6. rates, and each kernel's device time (torch.profiler) beside its
-     plain version's, its bound on the card (the bytes of an image that
+     of PNG frames; K1 6, K2 1 and K6 1 (the object and the mask in one
+     launch) a batch, 1 more with the overlay; then 2 frames of each app on
+     the card against the port's CPU path (points 0.05 px, congealed frames
+     5e-4, equal flips, propagated frames within 1e-3 in mean absolute
+     error); models/stn.composed_propagate_object at batch 50 (one K6) and
+     the path's splat with a quarter of its points hidden at -1e6, each K6
+     launch held against the plain splat; K6 on a toy pair, as the general
+     splat2d_cuda on a canvas, and on the path's points at sigma 4 (its
+     shared list overflows) held the same way, and the path's splat run
+     twice more, equal to the bit; the pair's device time at the path's
+     shapes beside the two splat2d_cuda launches it replaces, its plain
+     version, its bound and torch.bmm of the TPU kernel's separable
+     formulation; the pair on a dense 256^2 label over 8 images of 1024 px,
+     held and timed (no gate); and the device time of a batch by kernel
+     group with the idle share;
+  6. rates, and each kernel's device time (torch.profiler; K6's by CUDA
+     events around back-to-back calls, as a profile of it now and then
+     misses launches) beside its plain version's, its bound on the card (the bytes of an image that
      these grids must read counted as the distinct texels their taps reach;
      for K1 and K3 those of the native-resolution pyramid that their
      rebuilt taps reach) and the time of the PyTorch call that computes the
      same function where there is one (F.grid_sample, on the full-resolution
-     stack as a volume for the mipmap kernels), each beside the card; K1's
+     stack as a volume for the mipmap kernels; torch.bmm of the separable
+     weights for K6), each beside the card; K1's
      figures are those of a served batch-128 forward, per launch, and the
      N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train and the AR apps) and
@@ -123,15 +131,16 @@ from gangealing_torch.ops.mipmap import (
     _build_pyramid, _mipmap_warp_fold, _rebuild_stack, _sample_pyramid,
     mipmap_levels, mipmap_sample, mipmap_warp)
 from gangealing_torch.ops.resample import interpolate_bilinear
-from gangealing_torch.ops.splat import splat2d
+from gangealing_torch.ops.splat import splat2d, splat2d_pair
 from gangealing_torch.train import checkpoint as train_ckpt
 from gangealing_torch.train.losses import gangealing_loss
 from gangealing_torch.train.state import TrainState, train_step
 
 PADDINGS = ("border", "reflection", "zeros")
 KERNEL_TOL = 1e-5
-# F.grid_sample on the stack as a volume against K1: the same function, its
-# trilinear weights formed in another order
+# F.grid_sample on the stack as a volume against K1, and torch.bmm of the
+# separable weights against K6: the same function, its weights formed and
+# summed in another order
 LIBRARY_TOL = 1e-4
 OUT_TOL, GRID_TOL = 5e-4, 1e-4
 FLAGSHIP = ComposedSTNConfig(transforms=("similarity", "flow"), flow_size=128,
@@ -227,27 +236,108 @@ def call_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, name=None):
-    """Device time per call of ``fn`` in ms: the summed time of the kernels
-    one call launches (those whose name holds ``name``, if given), from
-    torch.profiler over ``iters`` calls. A profile that saw no device
-    time (the tracer now and then drops a whole window) is taken again,
-    up to three times."""
-    fn()
-    torch.cuda.synchronize()
+# torch.profiler's windows: windows taken for one profile before the
+# smoke gives up; the launches of torch.cuda._sleep that open each window
+# (its kernel's name), the last of them spinning for SPIN_CYCLES, about
+# 20 ms at the H100's 1.98 GHz; idle seconds after the profiled work.
+PROFILE_TRIES = 5
+SENTINELS = 256
+SENTINEL = "spin_kernel"
+# the range around the profiled work, which the tracer also shows as an
+# event on the card
+RUN_RANGE = "profiled run"
+SPIN_CYCLES = 40_000_000
+PROFILE_PAD_S = 0.02
+# windows taken, and those taken again because they missed a kernel
+WINDOWS = {"taken": 0, "retaken": 0}
+
+
+def profiled(run, accept=None):
+    """torch.profiler (CPU and CUDA activity) over ``run()``. The tracer
+    on an H100 loses kernels in two ways. Once a process has opened a few
+    windows, the first launches of a window have no kernel event (the
+    first in 35 of 61 windows of one smoke, the first three later on),
+    sometimes no host-side event either. And now and then it stamps
+    kernels milliseconds before their host-side launch and drops those
+    that this places before the window's start (one whole window, one
+    first 11 of 20 kernels, in 240 windows; none in 240 that began with
+    20 ms of idle time). So a window opens with SENTINELS launches of
+    torch.cuda._sleep, which nothing counts, the last of which keeps the
+    card busy for about 20 ms while ``run()`` launches behind it. A
+    window in which a launch made by ``run()`` has no kernel event is
+    taken again, as is one for which ``accept(profile)`` returns a
+    reason, up to PROFILE_TRIES windows; then the smoke fails. Returns
+    the profile."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    short = []
+    for _ in range(PROFILE_TRIES):
+        WINDOWS["taken"] += 1
         with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (name is None or name in e.key))
-        if us > 0:
-            return us / 1e3 / iters
-    raise AssertionError("the profiler saw no device time")
+            for _ in range(SENTINELS - 1):
+                torch.cuda._sleep(1)
+            torch.cuda._sleep(SPIN_CYCLES)
+            with torch.profiler.record_function(RUN_RANGE):
+                run()
+                torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = prof.profiler.kineto_results.events()
+        span = next(((e.start_ns(), e.end_ns()) for e in events
+                     if e.name() == RUN_RANGE
+                     and e.device_type() != torch.autograd.DeviceType.CUDA),
+                    (1, 0))
+        kernels = {e.correlation_id() for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CUDA}
+        launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                          if e.device_type() != torch.autograd.DeviceType.CUDA
+                          and "LaunchKernel" in e.name()
+                          and span[0] <= e.start_ns() <= span[1])
+        missed = [i for i, (_, c) in enumerate(launches) if c not in kernels]
+        if launches and not missed:
+            why = accept(prof) if accept else None
+            if why is None:
+                return prof
+        else:
+            why = (f"kernels of {len(launches) - len(missed)} of "
+                   f"{len(launches)} launches, lost the launches {missed[:4]}")
+        WINDOWS["retaken"] += 1
+        short.append(why)
+    raise AssertionError(f"no good profile in {PROFILE_TRIES} windows: "
+                         f"{'; '.join(short)}")
+
+
+def device_ms(fn, iters=20, name=None, per_call=None):
+    """Device time per call of ``fn`` in ms: the summed time of the kernels
+    (and copies) one call launches, those whose name holds ``name`` if it
+    is given, from a ``profiled`` window over ``iters`` calls after one
+    call outside it. The window saw every kernel launched in it, and is
+    taken again unless the kernels timed number a whole count a call,
+    ``per_call`` where it is given."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    def timed(prof):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and SENTINEL not in e.key and e.key != RUN_RANGE
+                and (name is None or name in e.key)]
+
+    def accept(prof):
+        events = timed(prof)
+        count = sum(e.count for e in events)
+        if count > 0 and count % iters == 0 and (
+                per_call is None or count == per_call * iters):
+            return None
+        return (f"{count} kernels{f' named {name}' if name else ''} for "
+                f"{iters} calls, expected {per_call or 'a whole count'} a "
+                f"call: " + ", ".join(f"{e.count} {e.key[:60]}"
+                                      for e in events[:6]))
+    events = timed(profiled(run, accept))
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 def card_line():
@@ -421,14 +511,15 @@ def sampler_ops(name, points, C):
     return points * (C * per_channel + per_point)
 
 
-def splat_bound(args, out):
-    """Bound of the splat function (splat2d_cuda: K6, then the
-    normalisation) on these inputs: the canvas, points, values and sigma
-    read, the output written; operations per pixel of each visible
-    point's own window (2 exps, the weight, C multiply-adds and the alpha
-    add), and the normalisation's 2 per output value."""
-    canvas, coords, values, sigma, _ = args
-    N, C, H, W = canvas.shape
+def splat_bound(coords, sigma, reads, outs):
+    """Bound of a splat on these inputs: the points, sigma and ``reads``
+    (the value sets, and the canvas where there is one) read once and
+    ``outs`` written once; operations per pixel of each visible point's
+    own window (2 exps, the weight, a multiply-add for each channel of
+    every output and the alpha add: the weight is counted once however
+    many outputs share it), and the normalisation's 2 per output value."""
+    N, _, H, W = outs[0].shape
+    C = sum(o.shape[1] for o in outs)
     x, y = coords[..., 0], coords[..., 1]
     s = 2.0 * sigma[:, None]
     rows = (torch.clamp(torch.ceil(y + s), max=H - 1)
@@ -437,8 +528,8 @@ def splat_bound(args, out):
             - torch.clamp(torch.floor(x - s), min=0) + 1)
     visible = (x >= 0) & (x < W) & (y >= 0) & (y < H)
     pixels = float((rows * cols * visible).sum())
-    ops = pixels * (2 * C + 6) + 2 * out.numel()
-    return bound(nbytes(canvas, coords, values, sigma, out), ops)
+    ops = pixels * (2 * C + 6) + 2 * sum(o.numel() for o in outs)
+    return bound(nbytes(coords, sigma, *reads, *outs), ops)
 
 
 def kernel_inputs(dev):
@@ -691,7 +782,8 @@ def kernel_groups(prof, groups):
     the span from the first kernel's start to the last one's end, and the
     time of each kernel name that fell in no group."""
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and SENTINEL not in e.name and e.name != RUN_RANGE]
     check(kernels, "the profiler saw no device activity")
     by_group, other = {}, {}
     for e in kernels:
@@ -735,12 +827,8 @@ def where_time_goes(model, requests, card):
     for b in BATCHES:
         congeal(model, requests[b][0])
         torch.cuda.synchronize()
-        activities = [torch.profiler.ProfilerActivity.CPU,
-                      torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=activities) as prof:
-            for i in range(PROFILED):
-                congeal(model, requests[b][i % REQUESTS])
-            torch.cuda.synchronize()
+        prof = profiled(lambda: [congeal(model, requests[b][i % REQUESTS])
+                                 for i in range(PROFILED)])
         print_groups(f"forward at batch {b}, {PROFILED} forwards", PROFILED,
                      *kernel_groups(prof, groups), card)
 
@@ -1192,12 +1280,7 @@ def train(dev, card):
               ("gather, scatter and index", ("gather", "scatter", "index")))
     step()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
+    prof = profiled(lambda: [step() for _ in range(2)])
     print_groups(f"step at batch {TRAIN_BATCH}, 2 steps", 2,
                  *kernel_groups(prof, groups), card, top=8)
 
@@ -1386,12 +1469,21 @@ def ar_card_vs_cpu(model, cpu_model, frames, label, label_png):
           "propagate_to_images differs from the CPU path")
 
 
+def hold_pairs(calls, errs, max_sigma=AR_SIGMA):
+    """Each recorded K6 launch of the pair, both outputs, against the plain
+    pair on the inputs it got."""
+    with torch.inference_mode():
+        hold("splat", [(o, r) for a, out in calls
+                       for o, r in zip(out, splat2d_pair(
+                           *a, max_sigma=max_sigma))], errs)
+
+
 def propagate_object_checks(model, frames, label, k6_args):
-    """composed_propagate_object at the path's shapes, with its two K6
-    launches held against the plain splat; then the object splat's K6
-    launch again with a quarter of its points moved to -1e6, as that
-    function hides a point that leaves the image. Returns the max abs
-    error and the launches."""
+    """composed_propagate_object at the path's shapes, with its one K6
+    launch held against the plain pair; then the AR path's K6 launch again
+    with a quarter of its points moved to -1e6, as that function hides a
+    point that leaves the image. Returns the max abs error and the
+    launches."""
     dev = next(model.parameters()).device
     points, colors, alphas = (t.to(dev).repeat(AR_BATCH, 1, 1)
                               for t in label)
@@ -1399,29 +1491,28 @@ def propagate_object_checks(model, frames, label, k6_args):
     sigma = torch.full((AR_BATCH,), AR_SIGMA, device=dev)
     errs = {}
     zero_launches()
-    with recorded(splat_ops, "splat2d_cuda") as k6, torch.inference_mode():
+    with recorded(splat_ops, "splat2d_pair_cuda") as k6, \
+            torch.inference_mode():
         obj, mask = composed_propagate_object(
             model, points, colors, alphas,
             torch.from_numpy(frames[:AR_BATCH]).to(dev), sigma,
             max_sigma=AR_SIGMA)
-    check(len(k6) == 2 and obj.shape == (AR_BATCH, 3, 256, 256)
+    check(len(k6) == 1 and obj.shape == (AR_BATCH, 3, 256, 256)
           and mask.shape == (AR_BATCH, 1, 256, 256)
           and bool(torch.isfinite(obj).all() & torch.isfinite(mask).all()),
-          "composed_propagate_object")
-    hidden = int((k6[0][0][1] == -1e6).all(-1).sum())
-    canvas, coords, values, sig, soft = k6_args
+          f"composed_propagate_object launched K6 {len(k6)} times, "
+          "expected 1, or its outputs are off")
+    hidden = int((k6[0][0][0] == -1e6).all(-1).sum())
+    coords, *rest = k6_args
     coords = coords.clone()
     coords[:, ::4] = -1e6
-    with recorded(splat_ops, "splat2d_cuda") as k6_hidden:
-        splat_ops.splat2d_cuda(canvas, coords, values, sig, soft)
-    with torch.inference_mode():
-        hold("splat", [(out, splat2d(*a[:4], soft_normalize=a[4],
-                                     max_sigma=AR_SIGMA))
-                       for a, out in k6 + k6_hidden], errs)
+    with recorded(splat_ops, "splat2d_pair_cuda") as k6_hidden:
+        splat_ops.splat2d_pair_cuda(coords, *rest)
+    hold_pairs(k6 + k6_hidden, errs)
     launches = dict(LAUNCHES)
     print(f"composed_propagate_object at batch {AR_BATCH}, points "
           f"{tuple(points.shape)}: {hidden} of {points.shape[0] * points.shape[1]}"
-          f" points hidden at -1e6; the object splat again with "
+          f" points hidden at -1e6; the AR path's splat again with "
           f"{AR_BATCH * len(range(0, coords.shape[1], 4))} points hidden: "
           f"K6 max abs err vs plain {errs['splat']:.3e}")
     return errs["splat"], launches
@@ -1437,10 +1528,153 @@ def ar_kernels_vs_plain(k1, k2, k6):
         hold("grid_sample", [(out, grid_sample(a[0], a[1],
                                                padding_mode=a[2]))
                              for a, out in k2], errs)
-        hold("splat", [(out, splat2d(*a[:4], soft_normalize=a[4],
-                                     max_sigma=AR_SIGMA))
-                       for a, out in k6], errs)
+    hold_pairs(k6, errs)
     return errs
+
+
+def splat_library(coords, obj_values, mask_values, sigma, H, W):
+    """The TPU kernel's own formulation of the pair as one PyTorch call:
+    torch.bmm of the masked separable weights gy^T (N, H, P) and
+    B (N, P, (C + 1) W), each value channel and a channel of ones (alpha)
+    times gx, built here, outside the timing (f32, TF32 off). Returns the
+    call and the pair's outputs normalised from its result."""
+    N, P, Co = obj_values.shape
+    values = torch.cat([obj_values, mask_values,
+                        torch.ones_like(obj_values[..., :1])], -1)
+    C = values.shape[-1] - 1
+    x, y = coords[..., 0], coords[..., 1]
+    s = sigma[:, None, None]
+    visible = ((x >= 0) & (x < W) & (y >= 0) & (y < H)).float()[..., None]
+
+    def weights(c, size):  # (N, P, size)
+        idx = torch.arange(size, device=c.device, dtype=c.dtype)
+        lo = torch.clamp(torch.floor(c[..., None] - 2.0 * s), min=0)
+        hi = torch.clamp(torch.ceil(c[..., None] + 2.0 * s), max=size - 1)
+        g = torch.exp(-1.0 / (2.0 * s * s) * (idx - c[..., None]) ** 2)
+        return g * ((idx >= lo) & (idx <= hi)).float() * visible
+
+    gyT = weights(y, H).transpose(1, 2).contiguous()
+    B = (values[..., None] * weights(x, W)[:, :, None, :]).reshape(
+        N, P, (C + 1) * W)
+
+    def call():
+        return torch.bmm(gyT, B)
+
+    acc = call().reshape(N, H, C + 1, W).permute(0, 2, 1, 3)
+    alpha = acc[:, C:]
+    return call, (acc[:, :Co] / (alpha + 1e-8),
+                  acc[:, Co:C] / (torch.clamp(alpha, min=1.0) + 1e-8))
+
+
+def dense_label_args(dev, n=8, size=1024, side=256):
+    """A full side x side dense label spread over n images of size x size
+    (a point every size / side px, jittered by a quarter of that), with the
+    AR path's channels: the large shape that shows the cull's
+    O(tiles x points) cost."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    step = size / side
+    ii, jj = torch.meshgrid(torch.arange(side, device=dev),
+                            torch.arange(side, device=dev), indexing="ij")
+    base = torch.stack([jj, ii], -1).reshape(1, -1, 2).float() * step
+    coords = (base + step / 2 + step / 4 * torch.randn(
+        n, side * side, 2, device=dev, generator=g)).contiguous()
+    obj = torch.rand(n, side * side, 3, device=dev, generator=g) * 2 - 1
+    mask = torch.rand(n, side * side, 1, device=dev, generator=g)
+    sigma = torch.full((n,), AR_SIGMA, device=dev)
+    return coords, obj, mask, sigma, size, size
+
+
+def toy_pair_args(dev):
+    """Two 24 x 20 images, 60 points, some out of the image and at -1e6."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    coords = (torch.rand(2, 60, 2, device=dev, generator=g)
+              * torch.tensor([26.0, 30.0], device=dev) - 3).contiguous()
+    coords[0, :4] = -1e6
+    obj = torch.randn(2, 60, 3, device=dev, generator=g)
+    mask = torch.rand(2, 60, 1, device=dev, generator=g)
+    return coords, obj, mask, torch.tensor([1.3, 2.1], device=dev), 24, 20
+
+
+def splat_checks(path_call, card):
+    """K6 off the main path: the toy pair and the general splat2d_cuda on a
+    canvas in both normalisations, and the AR path's points at sigma 4,
+    whose dense tiles overflow the kernel's shared list, held against the
+    plain version; the pair on the AR path's inputs twice, equal to the
+    bit to each other and to the path's own launch. Then the device time
+    of the pair at the path's shapes beside the two general splats it
+    replaces, its plain version, its bound and torch.bmm of the TPU
+    kernel's formulation; and of the large dense shape, recorded only.
+    Returns the max abs error and the pair's (ms, plain_ms, bound_ms,
+    bound_by, library_ms)."""
+    errs = {}
+    (coords, obj_v, mask_v, sigma, H, W), path_out = path_call
+    dev = coords.device
+    toy = toy_pair_args(dev)
+    with recorded(splat_ops, "splat2d_pair_cuda") as k6:
+        splat_ops.splat2d_pair_cuda(*toy)
+        splat_ops.splat2d_pair_cuda(coords, obj_v, mask_v,
+                                    torch.full_like(sigma, 4.0), H, W)
+    hold_pairs(k6[:1], errs, max_sigma=2.1)
+    hold_pairs(k6[1:], errs, max_sigma=4.0)
+    canvas = torch.randn(2, 3, 24, 20, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(11))
+    with torch.inference_mode():
+        for soft in (False, True):
+            hold("splat", [(splat_ops.splat2d_cuda(canvas, toy[0], toy[1],
+                                                   toy[3], soft),
+                            splat2d(canvas, toy[0], toy[1], toy[3], soft,
+                                    max_sigma=2.1))], errs)
+    again = [splat_ops.splat2d_pair_cuda(*path_call[0]) for _ in range(2)]
+    check(all(torch.equal(a, b) and torch.equal(a, c)
+              for a, b, c in zip(*again, path_out)),
+          "K6 gave other bits on the same inputs")
+    print(f"K6 held against the plain splat: the toy pair, splat2d_cuda on "
+          f"a canvas (both normalisations), the AR path's points at sigma 4 "
+          f"(max_sigma 4; its dense tiles overflow the shared list): max abs "
+          f"err {errs['splat']:.3e} (tolerance {KERNEL_TOL:g} scaled by "
+          f"max(1, max|ref|)); the pair on the AR path's inputs three times: "
+          f"equal to the bit")
+
+    args = path_call[0]
+    ms = device_ms(lambda: splat_ops.splat2d_pair_cuda(*args), per_call=1)
+    singles_ms = device_ms(lambda: (
+        splat_ops.splat2d_cuda(torch.zeros_like(path_out[0]), coords, obj_v,
+                               sigma),
+        splat_ops.splat2d_cuda(torch.zeros_like(path_out[1]), coords, mask_v,
+                               sigma, True)), name="splat", per_call=2)
+    plain_ms = device_ms(lambda: splat2d_pair(*args, max_sigma=AR_SIGMA))
+    b_ms, b_by = splat_bound(coords, sigma, (obj_v, mask_v), path_out)
+    library, lib_out = splat_library(*args)
+    lib_err = max(scaled_err(o, r)[1] for o, r in zip(lib_out, path_out))
+    check(lib_err <= LIBRARY_TOL, f"torch.bmm of the separable weights is "
+          f"not K6's function: {lib_err:.3e} scaled")
+    library_ms = device_ms(library)
+    print(f"K6 pair (object and mask) at the AR path's shapes, "
+          f"{tuple(path_out[0].shape)} and {tuple(path_out[1].shape)}, "
+          f"points {tuple(coords.shape)}, device time: splat2d_pair_cuda "
+          f"(one K6) {ms:.4f} ms; the object and the mask as two "
+          f"splat2d_cuda on zeroed canvases, their two K6 {singles_ms:.4f} "
+          f"ms; the plain splat2d_pair {plain_ms:.4f} ms; bound {b_ms:.4f} "
+          f"ms ({b_by}); "
+          f"torch.bmm of gy^T and B (N, P, (C + 1) W) {library_ms:.4f} ms, "
+          f"within {lib_err:.3e} of K6 (tolerance {LIBRARY_TOL:g} scaled) "
+          f"[{card}]")
+    del library, lib_out
+
+    large = dense_label_args(dev)
+    with recorded(splat_ops, "splat2d_pair_cuda") as k6_large:
+        splat_ops.splat2d_pair_cuda(*large)
+    hold_pairs(k6_large, errs)
+    large_out = k6_large[0][1]
+    large_ms = device_ms(lambda: splat_ops.splat2d_pair_cuda(*large),
+                         per_call=1)
+    lb_ms, lb_by = splat_bound(large[0], large[3], large[1:3], large_out)
+    P = large[0].shape[1]
+    print(f"K6 pair on a dense {math.isqrt(P)}^2 label over "
+          f"{tuple(large_out[0].shape)}, sigma {AR_SIGMA}, device time: "
+          f"{large_ms:.4f} ms, bound {lb_ms:.4f} ms ({lb_by}); max abs err "
+          f"vs plain {errs['splat']:.3e} [{card}]")
+    return errs["splat"], (ms, plain_ms, b_ms, b_by, library_ms)
 
 
 def ar(dev, card):
@@ -1473,30 +1707,30 @@ def ar(dev, card):
     rate = AR_FRAMES * SUBWINDOWS / sum(seconds)
     with recorded(mipmap_ops, "mipmap_sample") as k1, \
             recorded(grid_sample_ops, "grid_sample_cuda") as k2, \
-            recorded(splat_ops, "splat2d_cuda") as k6:
+            recorded(splat_ops, "splat2d_pair_cuda") as k6:
         check_ar(ar_run(model, frames[:AR_BATCH], label), AR_BATCH)
-    check(len(k1) == 6 and len(k2) == 1 and len(k6) == 2,
+    check(len(k1) == 6 and len(k2) == 1 and len(k6) == 1,
           f"an AR batch launched K1 {len(k1)}, K2 {len(k2)}, K6 {len(k6)} "
-          "times; expected 6, 1 and 2")
+          "times; expected 6, 1 and 1")
     errs = ar_kernels_vs_plain(k1, k2, k6)
     with recorded(mipmap_ops, "mipmap_sample") as k1_lap, \
             recorded(grid_sample_ops, "grid_sample_cuda") as k2_lap, \
-            recorded(splat_ops, "splat2d_cuda") as k6_lap:
+            recorded(splat_ops, "splat2d_pair_cuda") as k6_lap:
         check_ar(ar_run(model, frames[:AR_BATCH], label,
                         blend_alg="laplacian", overlay_congealed=True),
                  AR_BATCH)
-    check(len(k6_lap) == 4, f"the overlay batch launched K6 {len(k6_lap)} "
-          "times, expected 4")
+    check(len(k6_lap) == 2, f"the overlay batch launched K6 {len(k6_lap)} "
+          "times, expected 2")
     for k, v in ar_kernels_vs_plain(k1_lap, k2_lap, k6_lap).items():
         errs[k] = max(errs[k], v)
     with recorded(mipmap_ops, "mipmap_sample") as k1_img, \
             recorded(grid_sample_ops, "grid_sample_cuda") as k2_img, \
-            recorded(splat_ops, "splat2d_cuda") as k6_img:
+            recorded(splat_ops, "splat2d_pair_cuda") as k6_img:
         check_images(images_run(model, frames[:AR_BATCH], label_png),
                      AR_BATCH)
-    check(len(k1_img) == 6 and len(k2_img) == 1 and len(k6_img) == 2,
+    check(len(k1_img) == 6 and len(k2_img) == 1 and len(k6_img) == 1,
           f"a propagate_to_images batch launched K1 {len(k1_img)}, K2 "
-          f"{len(k2_img)}, K6 {len(k6_img)} times; expected 6, 1 and 2")
+          f"{len(k2_img)}, K6 {len(k6_img)} times; expected 6, 1 and 1")
     for k, v in ar_kernels_vs_plain(k1_img, k2_img, k6_img).items():
         errs[k] = max(errs[k], v)
     ar_cli(path, frames[:AR_BATCH], label_png, d)
@@ -1507,10 +1741,10 @@ def ar(dev, card):
           f"them through propagate_to_images); launches {launches}")
     check(launches["mipmap_sample"] == 6 * batches
           and launches["grid_sample"] == batches
-          and launches["splat"] == 2 * batches + 2
-          and sum(launches.values()) == 9 * batches + 2,
-          f"the AR path launched {launches}, expected K1 6, K2 1 and K6 2 "
-          "a batch and 2 more K6 for the overlay")
+          and launches["splat"] == batches + 1
+          and sum(launches.values()) == 8 * batches + 1,
+          f"the AR path launched {launches}, expected K1 6, K2 1 and K6 1 "
+          "a batch and 1 more K6 for the overlay")
     print(f"AR kernel launches held against the plain versions: max abs err "
           f"K1 {errs['mipmap_sample']:.3e}, K2 {errs['grid_sample']:.3e}, K6 "
           f"{errs['splat']:.3e}; K2's inputs {tuple(k2[0][0][0].shape)} "
@@ -1525,40 +1759,22 @@ def ar(dev, card):
                                                      k6[0][0])
     errs["splat"] = max(errs["splat"], err)
 
-    # K6 against the plain splat at the path's shapes: the object splat
-    # (C=3) and the mask splat (C=1, soft-normalised)
-    times = {}
-    for what, (args, out) in zip(("object", "mask"), k6):
-        ms = device_ms(lambda: splat_ops.splat2d_cuda(*args))
-        kernel_ms = device_ms(lambda: splat_ops.splat2d_cuda(*args),
-                              name="splat_kernel")
-        plain_ms = device_ms(lambda: splat2d(*args[:4], soft_normalize=args[4],
-                                             max_sigma=AR_SIGMA))
-        b_ms, b_by = splat_bound(args, out)
-        times[what] = (ms, plain_ms, b_ms, b_by, None)
-        print(f"K6 {what} splat at the AR path's shapes, canvas "
-              f"{tuple(args[0].shape)}, points {tuple(args[1].shape)}, device "
-              f"time: splat2d_cuda {ms:.4f} ms (K6 alone {kernel_ms:.4f} ms), "
-              f"plain splat2d {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}) "
-              f"[{card}]")
+    err, splat_times = splat_checks(k6[0], card)
+    errs["splat"] = max(errs["splat"], err)
 
     groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
               ("K2 grid_sample", ("grid_sample_kernel",)),
-              ("K6 splat", ("splat_kernel",)),
+              ("K6 splat", ("splat_tiles",)),
               ("depthwise FIR convs", ("conv_depthwise2d",)),
               CONV_GROUP,
               ("host-device copies", ("memcpy",)),
               ("pads", ("pad",)),
               ("gather and index", ("gather", "index")))
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        ar_run(model, frames[:2 * AR_BATCH], label)
-        torch.cuda.synchronize()
+    prof = profiled(lambda: ar_run(model, frames[:2 * AR_BATCH], label))
     print_groups(f"batch of {AR_BATCH} frames in the AR app, 2 batches", 2,
                  *kernel_groups(prof, groups), card, top=4)
     shutil.rmtree(d)
-    return rate, peak, launches, ar_check_launches, errs, times["object"]
+    return rate, peak, launches, ar_check_launches, errs, splat_times
 
 
 def main():
@@ -1611,6 +1827,11 @@ def main():
         check(launches[k] == 0 and check_launches[k] > 0,
               f"{k}: {launches[k]} launches on the main path, "
               f"{check_launches[k]} in its check; expected 0 and more")
+    for k, (ms, _, bound_ms, *_) in measured.items():
+        check(ms >= bound_ms, f"{k} took {ms:.4f} ms, under its bound of "
+              f"{bound_ms:.4f} ms: a timing fault")
+    print(f"torch.profiler: {WINDOWS['taken']} windows, "
+          f"{WINDOWS['retaken']} of them taken again for a missed kernel")
     print(card)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -109,7 +109,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.gg_mipmap_pyramid_dcoords.restype = i32
     lib.gg_mipmap_sample_dstack.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     lib.gg_mipmap_sample_dstack.restype = i32
-    lib.gg_splat_fwd.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.gg_splat_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     lib.gg_splat_fwd.restype = i32
     return lib
 

@@ -24,7 +24,7 @@ from gangealing_torch.ops.grid_sample import (
 from gangealing_torch.ops.mipmap import mipmap_warp
 from gangealing_torch.ops.resample import (
     bilinear_downsample, interpolate_bilinear)
-from gangealing_torch.ops.splat import splat2d_auto
+from gangealing_torch.ops.splat import splat2d_pair_auto
 
 
 # ---------------------------------------------------------------------------
@@ -550,8 +550,9 @@ def composed_propagate_object(model, congealed_object_points,
 
     The reference's per-image ragged gathers of the visible points become a
     mask: a point whose rounded position leaves the image moves to -1e6,
-    which the splat skips. ``max_sigma`` bounds the plain splat's window;
-    on the card K6 walks each point's exact window.
+    which the splat skips. On the card the object and the mask are one K6
+    launch, which walks each point's exact window; ``max_sigma`` bounds
+    the plain splat's window.
     """
     if model.cfg.num_heads != 1 or classifier is not None:
         raise NotImplementedError(
@@ -569,10 +570,7 @@ def composed_propagate_object(model, congealed_object_points,
                & (rounded[..., 0] < supersize) & (rounded[..., 1] < supersize))
     propagated = torch.where(visible[..., None], propagated,
                              torch.full_like(propagated, -1e6))
-    blank_img = torch.zeros_like(target_image)
-    blank_mask = blank_img[:, :1]
-    obj_img = splat2d_auto(blank_img, propagated, congealed_object_values,
-                           sigma, False, max_sigma=max_sigma)
-    mask_img = splat2d_auto(blank_mask, propagated, congealed_mask_values,
-                            sigma, True, max_sigma=max_sigma)
-    return obj_img, mask_img
+    dtype = target_image.dtype
+    return splat2d_pair_auto(propagated, congealed_object_values.to(dtype),
+                             congealed_mask_values.to(dtype), sigma,
+                             supersize, supersize, max_sigma=max_sigma)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from gangealing_torch.ops.resample import interpolate_bilinear
-from gangealing_torch.ops.splat import splat2d_auto
+from gangealing_torch.ops.splat import splat2d_pair_auto
 from gangealing_torch.utils.laplacian import BLEND_CONFIGS, laplacian_blend
 
 CLUSTER_COLORSCALES = ["plasma", "plotly3", "viridis", "cividis"]
@@ -157,8 +157,9 @@ def splat_points(images, points, sigma, opacity, colorscale="turbo",
                  max_sigma=None):
     """Overlay (N, P, 2) pixel points onto (N, C, H, W) images by Gaussian
     splatting (helpers.py:135-194). Everything moves to the images'
-    device; on the card both splats are K6. ``max_sigma`` (default: the
-    largest sigma) bounds the plain splat's window."""
+    device; on the card the object and the mask are one K6 launch.
+    ``max_sigma`` (default: the largest sigma) bounds the plain splat's
+    window."""
     images = torch.as_tensor(images)
     dev = images.device
     points = torch.as_tensor(points, device=dev)
@@ -190,13 +191,10 @@ def splat_points(images, points, sigma, opacity, colorscale="turbo",
         sigma_arr = torch.as_tensor(sigma, device=dev)
         if max_sigma is None:
             max_sigma = float(sigma_arr.max())
-    blank_img = torch.zeros_like(images)
-    blank_mask = torch.zeros((N, 1, images.shape[2], images.shape[3]),
-                             dtype=images.dtype, device=dev)
-    obj = splat2d_auto(blank_img, points, colors, sigma_arr, False,
-                       max_sigma=max_sigma)
-    mask = splat2d_auto(blank_mask, points, alpha_channel, sigma_arr, True,
-                        max_sigma=max_sigma) * opacity
+    obj, mask = splat2d_pair_auto(points, colors.to(images.dtype),
+                                  alpha_channel.to(images.dtype), sigma_arr,
+                                  *images.shape[2:], max_sigma=max_sigma)
+    mask = mask * opacity
     if blend_alg == "alpha":
         return mask * obj + (1 - mask) * images
     if blend_alg in BLEND_CONFIGS:

@@ -86,13 +86,14 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_nothing_of_jax():
-    """No line of the port's modules, of chip_smoke.py or of
-    chip_mipmap_variants.py imports jax or the JAX package, at top level or
+    """No line of the port's modules, of chip_smoke.py or of the variants
+    scripts imports jax or the JAX package, at top level or
     inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gangealing_tpu)"
                          r"\b")
     files = sorted((REPO / "gangealing_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "chip_mipmap_variants.py"]
+    files += [REPO / "chip_smoke.py", REPO / "chip_mipmap_variants.py",
+              REPO / "chip_splat_variants.py"]
     bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)

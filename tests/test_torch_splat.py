@@ -9,8 +9,8 @@ matmul accumulation, as tests/test_splat.py runs it; and ``splat2d_auto``
 on a CPU tensor launches nothing.
 
 On the card (marker ``cuda``): K6 against the plain version on the same
-CUDA tensors, within 1e-5 scaled: its atomics sum in another order, which
-changes from run to run.
+CUDA tensors, within 1e-5 scaled: its expf differs from torch's in the last
+bit, and the plain version's scatter on the card sums in another order.
 """
 
 import functools
