@@ -19,6 +19,8 @@ Phases:
      then each kernel launch of a served forward held against its plain
      version on the inputs the forward gave it (K1 at batch 40 and 128, K2
      at 40); K1 timed on those inputs beside its plain version,
+     and K2 on those of each antialias=False head beside its plain version,
+     F.grid_sample and its bound,
      F.grid_sample on the full-resolution volume and its bound on the
      pyramid, and the whole mipmap warp's device time (levels, pyramid,
      K1) on the same inputs; batch-4 forwards with and without
@@ -38,8 +40,11 @@ Phases:
      below an integer, each K2 and K4 launch of an antialias=False step and
      each K5a and K5b launch of a forward whose input needs a gradient held
      against the plain versions and their autograd (1e-5 scaled by
-     max(1, max|ref|)); train imgs/s over about 5 s and the peak memory of
-     a step; the device time of each head's mipmap warp and its backward to
+     max(1, max|ref|)); K5b on that forward's d/dout with the identity
+     grid, the recorded one, a zoom-in and a border pile in the three
+     padding modes, held the same way and run three times, equal to the
+     bit, the skewed ones timed; train imgs/s over about 5 s and the peak
+     memory of a step; the device time of each head's mipmap warp and its backward to
      the grid; the device time of a step by kernel group with the idle
      share; and one step's loss and gradients on the card against the
      port's CPU path at batch 2, from the trained state and from the
@@ -52,6 +57,9 @@ Phases:
      inference on, alpha blending; a warm-up batch, the peak memory of a
      batch, AR frames/s over about 5 s in parts, one batch with every K1,
      K2 and K6 launch held against its plain version on the inputs it got,
+     that batch's K2 reading gridB's own storage (no copy) and timed on
+     its inputs beside its plain version, F.grid_sample on the same view,
+     its bound and the copy it no longer makes,
      one with the Laplacian blend and the label overlaid on the congealed
      frames, one batch of apps/propagate_to_images (objects=True, the label
      read from an RGBA PNG) with its launches held the same way, and
@@ -80,7 +88,9 @@ Phases:
      same function where there is one (F.grid_sample, on the full-resolution
      stack as a volume for the mipmap kernels; torch.bmm of the separable
      weights for K6), each beside the card; K1's
-     figures are those of a served batch-128 forward, per launch, and the
+     figures are those of a served batch-128 forward, per launch, K2's
+     those of an AR batch, K5b's those of the train phase's check (its
+     three kernels a call), and the
      N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train and the AR apps) and
      whose "check_launches" are the side checks' (the antialias=False step,
@@ -205,6 +215,14 @@ AR_PT_TOL, AR_PROP_MEAN_TOL = 0.05, 1e-3
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+
+# K5b's kernels a call: bin, gather, merge.
+K5B_KERNELS = 3
+# K5b's skewed grids: a zoom-in by 4 (every point in a sixteenth of the
+# image) and a zoom-out by 2 (three quarters of the points clamped onto the
+# edge texels under border padding).
+SKEWED = {"zoom-in": 0.25, "border pile": 2.0}
 
 
 # The kernels the main path launches: K1 and K2 in serve (K2 in its
@@ -687,7 +705,7 @@ def kernels_at_path_shapes(model, no_aa, requests):
     cases.append(("grid_sample", grid_sample_ops, "grid_sample_cuda",
                   plain_k2, no_aa, 40))
     err = {"mipmap_sample": 0.0, "grid_sample": 0.0}
-    k1_calls, warps = {}, {}
+    k1_calls, warps, k2_calls = {}, {}, []
     for name, module, entry, plain, m, b in cases:
         with recorded(module, entry) as calls, \
                 recorded(stn_ops, "mipmap_warp") as warp_calls:
@@ -696,6 +714,8 @@ def kernels_at_path_shapes(model, no_aa, requests):
               "forward, expected 2")
         if name == "mipmap_sample":
             k1_calls[b], warps[b] = calls, [a for a, _ in warp_calls]
+        else:
+            k2_calls = calls
         for head, (args, out) in zip(("similarity", "flow"), calls):
             with torch.inference_mode():
                 e = float((out - plain(*args)).abs().max())
@@ -706,7 +726,73 @@ def kernels_at_path_shapes(model, no_aa, requests):
             check(e <= KERNEL_TOL, f"{name} disagrees with its plain version "
                   f"in the {head} head at batch {b}")
             err[name] = max(err[name], e)
-    return err, k1_calls, warps
+    return err, k1_calls, warps, k2_calls
+
+
+def k2_times(img, grid, padding_mode="border"):
+    """K2 on these inputs as grid_sample_auto takes them: the device time
+    of K2's kernel and of the whole call (with any copy of the input that
+    it makes), of the plain version, of F.grid_sample on the input in the
+    same layout, and K2's bound. Returns (ms, plain_ms, bound_ms, bound_by,
+    library_ms, call_ms)."""
+    with torch.inference_mode():
+        def k2():
+            return grid_sample_auto(img, grid, padding_mode=padding_mode)
+        out = k2()
+        ms = device_ms(k2, name="grid_sample_kernel", per_call=1)
+        call = device_ms(k2)
+        plain_ms = device_ms(lambda: grid_sample(img, grid,
+                                                 padding_mode=padding_mode))
+        lib_ms = device_ms(lambda: F.grid_sample(
+            img, grid, mode="bilinear", padding_mode=padding_mode,
+            align_corners=False))
+        b = bound(texel_bytes(img, grid, padding_mode=padding_mode)
+                  + nbytes(grid, out),
+                  sampler_ops("grid_sample", grid.numel() // 2, img.shape[1]))
+    return (ms, plain_ms, *b, lib_ms, call)
+
+
+def print_k2(what, img, grid, t, card):
+    print(f"K2 {what}, input {tuple(img.shape)} (strides {img.stride()}), "
+          f"grid {tuple(grid.shape)}, device time: kernel {t[0]:.4f} ms "
+          f"(grid_sample_auto {t[5]:.4f} ms), plain {t[1]:.4f} ms, "
+          f"F.grid_sample {t[4]:.4f} ms; bound {t[2]:.4f} ms ({t[3]}) "
+          f"[{card}]")
+
+
+def k5b_times(grid, dout, shape, padding_mode="border",
+              per_call=K5B_KERNELS):
+    """K5b on these inputs: the device time of its kernels (``per_call``
+    a call), of the plain autograd and of F.grid_sample's backward to the
+    image, and its bound (grid and dout read, d/dimage written once).
+    Returns (ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    x = torch.zeros(shape, device=grid.device, requires_grad=True)
+    plain_out = grid_sample(x, grid, padding_mode=padding_mode)
+    lib_out = F.grid_sample(x, grid, padding_mode=padding_mode,
+                            align_corners=False)
+
+    def k5b():
+        return grid_sample_ops.grid_sample_dimg(grid, dout, shape,
+                                                padding_mode)
+    out = k5b()
+    return (device_ms(k5b, per_call=per_call),
+            device_ms(lambda: torch.autograd.grad(plain_out, (x,), dout,
+                                                  retain_graph=True)),
+            *bound(nbytes(grid, dout, out),
+                   sampler_ops("grid_sample_dimg", grid.numel() // 2,
+                               dout.shape[1])),
+            device_ms(lambda: torch.autograd.grad(lib_out, (x,), dout,
+                                                  retain_graph=True)))
+
+
+def scaled_grid(N, size, scale, dev, seed=12):
+    """An affine (N, size, size, 2) grid: ``scale`` times the identity,
+    shifted by up to 0.1 of the half-width."""
+    g = torch.Generator().manual_seed(seed)
+    theta = torch.zeros(N, 2, 3)
+    theta[:, 0, 0] = theta[:, 1, 1] = scale
+    theta[:, :, 2] = (torch.rand(N, 2, generator=g) * 2 - 1) * 0.1
+    return affine_grid(theta, (N, 1, size, size)).contiguous().to(dev)
 
 
 def warp_ms(img, grid, padding_mode, backward=False):
@@ -925,10 +1011,15 @@ def serve(dev, card):
           f"grid-sample kernel launched {launches['grid_sample']} times in "
           "one antialias=False forward, expected 2")
 
-    path_err, k1_calls, warps = kernels_at_path_shapes(model, no_aa,
-                                                       requests)
+    path_err, k1_calls, warps, k2_calls = kernels_at_path_shapes(
+        model, no_aa, requests)
     k1_path = k1_at_path_shapes(k1_calls, warps, card)
     del k1_calls, warps
+    # K2 on the inputs each head of the antialias=False forward gave it
+    for head, (args, _) in zip(("similarity", "flow"), k2_calls):
+        print_k2(f"in the {head} head of an antialias=False forward at "
+                 f"batch 40", args[0], args[1], k2_times(*args), card)
+    del k2_calls
     g4 = torch.Generator().manual_seed(2)
     card_vs_cpu(model, cpu_model,
                 torch.rand(4, 3, 256, 256, generator=g4) * 2 - 1,
@@ -993,6 +1084,41 @@ def k5b_graph(a):
     return grid_sample(x, grid, padding_mode=pm), (x,), dout
 
 
+def k5b_checks(k5b, errs, card):
+    """K5b beyond the recorded launches: on the check's d/dout and image
+    shape (40, 3, 128, 128, from 128 x 128 points), the identity grid, the
+    similarity head's recorded grid, a zoom-in and a border pile (SKEWED),
+    each in the three padding modes, held against the plain autograd and
+    run three times, equal to the bit; the skewed ones timed under border
+    padding."""
+    grid, dout, shape, _ = k5b[0][0]
+    N, dev = shape[0], grid.device
+    grids = {"identity": grid_sample_ops.identity_grid(N, 128, 128,
+                                                       device=dev),
+             "affine": grid}
+    grids.update({k: scaled_grid(N, 128, s, dev) for k, s in SKEWED.items()})
+    for kind, g in grids.items():
+        for pm in PADDINGS:
+            runs = [grid_sample_ops.grid_sample_dimg(g, dout, shape, pm)
+                    for _ in range(3)]
+            check(all(torch.equal(runs[0], r) for r in runs[1:]),
+                  f"K5b gave other bits on the same inputs ({kind}, {pm})")
+            hold("grid_sample_dimg", backward_pairs(
+                [((g, dout, shape, pm), runs[0])], k5b_graph), errs)
+    print(f"K5b on identity, affine, zoom-in and border-pile grids over "
+          f"{tuple(shape)} in the three padding modes: max abs err vs the "
+          f"plain autograd {errs['grid_sample_dimg']:.3e} (tolerance "
+          f"{KERNEL_TOL:g} scaled by max(1, max|ref|)), three launches each "
+          f"equal to the bit")
+    for kind in SKEWED:
+        t = k5b_times(grids[kind], dout, shape)
+        print(f"K5b on the {kind} grid, {tuple(shape)} from "
+              f"{tuple(grids[kind].shape)}, border, device time: kernels "
+              f"{t[0]:.4f} ms, plain autograd {t[1]:.4f} ms, backward of "
+              f"F.grid_sample to the image {t[4]:.4f} ms; bound {t[2]:.4f} "
+              f"ms ({t[3]}) [{card}]")
+
+
 def backward_pairs(calls, graph_of):
     """(kernel output, plain autograd) for each recorded backward launch."""
     pairs = []
@@ -1046,7 +1172,8 @@ def backward_times(calls, graph_of, kernel):
         g = volume_grid(grid, args[1], D)
     lib_out = F.grid_sample(x, g, padding_mode=pm, align_corners=False)
     lib_dout = dout[:, :, None] if lib_out.ndim == 5 else dout
-    return (device_ms(lambda: kernel(*args)),
+    per_call = K5B_KERNELS if name == "grid_sample_dimg" else None
+    return (device_ms(lambda: kernel(*args), per_call=per_call),
             device_ms(lambda: torch.autograd.grad(plain_out, inputs, dout,
                                                   retain_graph=True)),
             *bound(moved, sampler_ops(name, grid.numel() // 2,
@@ -1240,6 +1367,7 @@ def train(dev, card):
           f"{image_launches}")
     hold("mipmap_sample_dstack", backward_pairs(k5a, k5a_graph), errs)
     hold("grid_sample_dimg", backward_pairs(k5b, k5b_graph), errs)
+    k5b_checks(k5b, errs, card)
     print(f"K2 and K4 launches of an antialias=False step, K5a and K5b of a "
           f"forward whose input needs a gradient: max abs err K2 "
           f"{errs['grid_sample']:.3e}, K4 {errs['grid_sample_dgrid']:.3e}, "
@@ -1707,12 +1835,18 @@ def ar(dev, card):
     rate = AR_FRAMES * SUBWINDOWS / sum(seconds)
     with recorded(mipmap_ops, "mipmap_sample") as k1, \
             recorded(grid_sample_ops, "grid_sample_cuda") as k2, \
-            recorded(splat_ops, "splat2d_pair_cuda") as k6:
+            recorded(splat_ops, "splat2d_pair_cuda") as k6, \
+            recorded(stn_ops, "sample_grid_at_points") as sampled:
         check_ar(ar_run(model, frames[:AR_BATCH], label), AR_BATCH)
     check(len(k1) == 6 and len(k2) == 1 and len(k6) == 1,
           f"an AR batch launched K1 {len(k1)}, K2 {len(k2)}, K6 {len(k6)} "
           "times; expected 6, 1 and 1")
     errs = ar_kernels_vs_plain(k1, k2, k6)
+    view, points = k2[0][0][:2]
+    check(len(sampled) == 1
+          and view.data_ptr() == sampled[0][0][0].data_ptr()
+          and view.is_contiguous(memory_format=torch.channels_last),
+          "K2 of an AR batch did not read gridB's own storage")
     with recorded(mipmap_ops, "mipmap_sample") as k1_lap, \
             recorded(grid_sample_ops, "grid_sample_cuda") as k2_lap, \
             recorded(splat_ops, "splat2d_pair_cuda") as k6_lap:
@@ -1754,6 +1888,11 @@ def ar(dev, card):
           f"{', '.join(f'{AR_FRAMES / t:.1f}' for t in seconds)}), peak "
           f"memory of a batch {peak:.2f} GiB [{card}]")
 
+    k2_ar = k2_times(view, points)
+    copy_ms = device_ms(lambda: view.contiguous())
+    print_k2(f"of an AR batch (sample_grid_at_points, reading gridB's own "
+             f"storage; a contiguous copy of it would take {copy_ms:.4f} ms)",
+             view, points, k2_ar, card)
     ar_card_vs_cpu(model, cpu_model, frames, label, label_png)
     err, ar_check_launches = propagate_object_checks(model, frames, label,
                                                      k6[0][0])
@@ -1774,7 +1913,8 @@ def ar(dev, card):
     print_groups(f"batch of {AR_BATCH} frames in the AR app, 2 batches", 2,
                  *kernel_groups(prof, groups), card, top=4)
     shutil.rmtree(d)
-    return rate, peak, launches, ar_check_launches, errs, splat_times
+    return (rate, peak, launches, ar_check_launches, errs, splat_times,
+            k2_ar[:5])
 
 
 def main():
@@ -1785,7 +1925,7 @@ def main():
     train_rate, train_peak, train_launches, check_launches, train_errs, \
         train_times = train(dev, card)
     ar_rate, ar_peak, ar_launches, ar_check_launches, ar_errs, \
-        splat_times = ar(dev, card)
+        splat_times, k2_ar = ar(dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in list(train_errs.items()) + list(ar_errs.items()):
@@ -1813,6 +1953,9 @@ def main():
     measured["mipmap_sample"] = k1_path
     measured.update(train_times)
     measured["splat"] = splat_times
+    # K2 on the inputs of an AR batch, where most of its main-path
+    # launches are
+    measured["grid_sample"] = k2_ar
     # "launches" counts the main path only: serve, cli.train and the AR
     # apps, each run with every count zeroed just before it. The backward
     # kernels of the antialias=False form and of an image that needs a

@@ -97,11 +97,13 @@ def load_kernels() -> ctypes.CDLL:
         _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gg_grid_sample_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 7 + [ptr]
+    lib.gg_grid_sample_fwd.argtypes = [ptr, ptr, ptr] + [i32] * 9 + [ptr]
     lib.gg_grid_sample_fwd.restype = i32
     lib.gg_grid_sample_dgrid.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.gg_grid_sample_dgrid.restype = i32
-    lib.gg_grid_sample_dimg.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+    lib.gg_grid_sample_dimg_scratch.argtypes = [i32] * 5
+    lib.gg_grid_sample_dimg_scratch.restype = ctypes.c_longlong
+    lib.gg_grid_sample_dimg.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.gg_grid_sample_dimg.restype = i32
     lib.gg_mipmap_pyramid_fwd.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
     lib.gg_mipmap_pyramid_fwd.restype = i32
@@ -115,17 +117,20 @@ def load_kernels() -> ctypes.CDLL:
 
 
 def check_operand(name: str, t: torch.Tensor, ndim: int,
-                  device: torch.device) -> None:
+                  device: torch.device, channels_last: bool = False) -> None:
     """Raise unless ``t`` is what a kernel takes: a contiguous f32 CUDA
-    tensor of ``ndim`` dimensions on ``device``."""
+    tensor of ``ndim`` dimensions on ``device`` (or, with ``channels_last``,
+    one contiguous in that memory format)."""
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != torch.float32:
         raise ValueError(f"{name} must be float32, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    if not (t.is_contiguous() or channels_last and t.is_contiguous(
+            memory_format=torch.channels_last)):
+        raise ValueError(f"{name} must be contiguous"
+                         f"{' or channels_last' if channels_last else ''}")
 
 
 def padding_code(padding_mode: str) -> int:

@@ -4,9 +4,11 @@ Port of gangealing_tpu/ops/grid_sample.py. ``grid_sample`` is the plain
 PyTorch version (bilinear and nearest, border / reflection / zeros padding,
 either ``align_corners``). ``grid_sample_auto`` takes it for CPU tensors and
 on CUDA launches the bilinear kernels of csrc/grid_sample.cu through an
-autograd Function: the forward (K2) replaces
+autograd Function: the forward (K2, which reads a contiguous or a
+channels_last input as it lies) replaces
 gangealing_tpu/ops/pallas_grid_sample.py::_fwd_kernel, its backward the
-``_dcoords_kernel`` (K4, d/dgrid) and ``_dimg_kernel`` (K5b, d/dimage).
+``_dcoords_kernel`` (K4, d/dgrid) and ``_dimg_kernel`` (K5b, d/dimage, a
+deterministic binned gather).
 
 The plain version differentiates as ``jax.grad`` of the JAX package's
 ``grid_sample`` does, ties included: an identity grid puts every point on an
@@ -135,20 +137,25 @@ def grid_sample_auto(input, grid, mode="bilinear", padding_mode="border",
 
     A CPU tensor takes the plain ``grid_sample``. A CUDA tensor in bilinear
     mode with ``align_corners=False`` goes through ``GridSample``, whose
-    forward and backward launch the kernels or raise. Nearest mode and
+    forward and backward launch the kernels or raise. K2 reads an input
+    that is contiguous or channels_last as it lies; any other layout is
+    copied to a contiguous one first. Nearest mode and
     ``align_corners=True`` were never in a TPU kernel and stay plain PyTorch
     on CUDA too.
     """
     if input.device.type == "cpu" or mode != "bilinear" or align_corners:
         return grid_sample(input, grid, mode=mode, padding_mode=padding_mode,
                            align_corners=align_corners)
-    return GridSample.apply(input.contiguous(), grid.contiguous(),
-                            padding_mode)
+    if not (input.is_contiguous()
+            or input.is_contiguous(memory_format=torch.channels_last)):
+        input = input.contiguous()
+    return GridSample.apply(input, grid.contiguous(), padding_mode)
 
 
 class GridSample(torch.autograd.Function):
     """Bilinear, align_corners=False grid_sample on the card: K2 forward;
-    the backward launches K4 for d/dgrid and K5b for d/dinput, each only
+    the backward launches K4 for d/dgrid (on a contiguous copy of a
+    channels_last input) and K5b for d/dinput (written as NCHW), each only
     when that input needs a gradient."""
 
     @staticmethod
@@ -164,7 +171,8 @@ class GridSample(torch.autograd.Function):
         dout = dout.contiguous()
         dinput = dgrid = None
         if ctx.needs_input_grad[1]:
-            dgrid = grid_sample_dgrid(input, grid, dout, ctx.padding_mode)
+            dgrid = grid_sample_dgrid(input.contiguous(), grid, dout,
+                                      ctx.padding_mode)
         if ctx.needs_input_grad[0]:
             dinput = grid_sample_dimg(grid, dout, input.shape,
                                       ctx.padding_mode)
@@ -187,11 +195,12 @@ def _check_dout(dout, N, C, Ho, Wo, device):
 def grid_sample_cuda(input, grid, padding_mode="border"):
     """K2: bilinear, align_corners=False grid_sample on the card.
 
-    input (N, C, H, W) and grid (N, Ho, Wo, 2), contiguous float32 CUDA
-    tensors on one device. Returns (N, C, Ho, Wo) float32.
+    input (N, C, H, W) float32, contiguous or channels_last, and grid
+    (N, Ho, Wo, 2) contiguous float32, CUDA tensors on one device. Returns
+    (N, C, Ho, Wo) float32.
     """
     device = input.device
-    _build.check_operand("input", input, 4, device)
+    _build.check_operand("input", input, 4, device, channels_last=True)
     _build.check_operand("grid", grid, 4, device)
     N, C, H, W = input.shape
     Ho, Wo = _check_grid(grid, N)
@@ -199,8 +208,9 @@ def grid_sample_cuda(input, grid, padding_mode="border"):
     out = torch.empty((N, C, Ho, Wo), device=device, dtype=torch.float32)
     lib = _build.load_kernels()
     _build.launch("grid_sample", lib.gg_grid_sample_fwd, input.data_ptr(),
-                  grid.data_ptr(), out.data_ptr(), N, C, H, W, Ho * Wo, code,
-                  device.index, _build.stream_of(device))
+                  grid.data_ptr(), out.data_ptr(), N, C, H, W, Ho * Wo, Wo,
+                  int(not input.is_contiguous()), code, device.index,
+                  _build.stream_of(device))
     return out
 
 
@@ -225,20 +235,31 @@ def grid_sample_dgrid(input, grid, dout, padding_mode="border"):
 
 def grid_sample_dimg(grid, dout, input_shape, padding_mode="border"):
     """K5b: the gradient of ``grid_sample_cuda`` with respect to its input,
-    of ``input_shape`` (N, C, H, W), given ``dout`` on the card. A scatter
-    with atomicAdd: the order of the sums, and so the last bits, change from
-    run to run."""
+    of ``input_shape`` (N, C, H, W), NCHW, given ``dout`` on the card. A
+    binned gather with no atomics: the same bits from run to run. Three
+    kernels, one count in ``LAUNCHES``; d/dimage and the scratch come from
+    ``torch.empty``."""
     device = grid.device
     _build.check_operand("grid", grid, 4, device)
     N, C, H, W = input_shape
     Ho, Wo = _check_grid(grid, N)
     _check_dout(dout, N, C, Ho, Wo, device)
     code = _build.padding_code(padding_mode)
-    dimg = torch.zeros((N, C, H, W), device=device, dtype=torch.float32)
+    if Ho * Wo == 0:
+        return torch.zeros((N, C, H, W), device=device, dtype=torch.float32)
+    if grid.data_ptr() % 8:  # K5b reads a point as one float2
+        grid = grid.clone()
     lib = _build.load_kernels()
+    nbytes = lib.gg_grid_sample_dimg_scratch(N, C, H, W, Ho * Wo)
+    if nbytes < 0:
+        raise ValueError(f"K5b does not take an image of {input_shape} "
+                         f"sampled at {Ho} x {Wo} points")
+    dimg = torch.empty((N, C, H, W), device=device, dtype=torch.float32)
+    scratch = torch.empty(max(nbytes, 1), device=device, dtype=torch.uint8)
     _build.launch("grid_sample_dimg", lib.gg_grid_sample_dimg,
-                  grid.data_ptr(), dout.data_ptr(), dimg.data_ptr(), N, C, H,
-                  W, Ho * Wo, code, device.index, _build.stream_of(device))
+                  grid.data_ptr(), dout.data_ptr(), dimg.data_ptr(),
+                  scratch.data_ptr(), N, C, H, W, Ho * Wo, code, device.index,
+                  _build.stream_of(device))
     return dimg
 
 

@@ -8,8 +8,9 @@ interpret mode as the JAX package's own tests run them (atol 1e-5, f32).
 On the card (marker ``cuda``, skipped without one): each forward kernel
 against its plain version on the same CUDA tensors (atol 1e-5), each
 backward kernel against the plain version's autograd (atol 1e-5 scaled by
-max(1, max|ref|): the scatters of K5a and K5b sum in another order), and
-the launch counts:
+max(1, max|ref|): K5a scatters with atomics, whose order of the sums
+changes from run to run; K5b gathers each texel's sum in a fixed order,
+the same from run to run but not the CPU's), and the launch counts:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
@@ -93,7 +94,8 @@ def test_port_sources_import_nothing_of_jax():
                          r"\b")
     files = sorted((REPO / "gangealing_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "chip_mipmap_variants.py",
-              REPO / "chip_splat_variants.py"]
+              REPO / "chip_splat_variants.py",
+              REPO / "chip_grid_sample_variants.py"]
     bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
