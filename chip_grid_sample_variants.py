@@ -59,7 +59,8 @@ import gangealing_torch  # noqa: E402
 from gangealing_torch import _build  # noqa: E402
 from gangealing_torch.ops import grid_sample as gs  # noqa: E402
 
-# name: edits of grid_sample.cu, each (old, new, count)
+# name: edits of csrc/ (grid_sample.cu or the bin stage it shares with K5a,
+# binned.cuh), each (old, new, count)
 SUMS = "for (int j = sh.run[k]; j < end; ++j) {"
 DOUT = "d[r][c] = p[r] >= 0 && c < C ? dn[(int64_t)c * P + p[r]] : 0.f;"
 COUNT = ("      const Group gr = group_of(key[r]);\n"
@@ -91,23 +92,29 @@ VARIANTS = {
          + COUNT, 1)],
 }
 ROOT = os.path.join("build", "variants_grid_sample")
-STAGES = ("bin", "gather", "merge")  # K5b's kernels
+# K5b's kernels, by a part of their names
+STAGES = {"bin": "bin_kernel", "gather": "dimg_gather_kernel",
+          "merge": "dimg_merge_kernel"}
 
 
 def build(name):
     d = os.path.join(ROOT, re.sub(r"\W+", "_", name))
     shutil.copytree(_build.CSRC, d)
     path = os.path.join(d, "grid_sample.cu")
-    src = open(path).read()
+    files = {f: open(os.path.join(d, f)).read()
+             for f in ("grid_sample.cu", "binned.cuh")}
     for old, new, count in VARIANTS[name]:
-        cs.check(src.count(old) == count, f"{name}: {old!r} not found")
-        src = src.replace(old, new)
-    open(path, "w").write(src)
+        cs.check(sum(s.count(old) for s in files.values()) == count,
+                 f"{name}: {old!r} not found")
+        files = {f: s.replace(old, new) for f, s in files.items()}
+    for f, s in files.items():
+        open(os.path.join(d, f), "w").write(s)
     so = os.path.join(d, "lib.so")
     log = _build._nvcc_run(name, [*_build.NVCC_FLAGS, "-shared", "-o", so,
                                   path])
-    regs = re.findall(r"Compiling entry function '\w*?dimg_(\w+?)_kernel"
-                      r"(?:ILi0E)?\w*'.*?Used (\d+) registers", log, re.S)
+    regs = re.findall(r"Compiling entry function '\w*?(dimg_gather|"
+                      r"dimg_merge|bin)_kernel(?:ILi0E|INS_8DimgKeysILi0E)?"
+                      r"\w*'.*?Used (\d+) registers", log, re.S)
     return so, dict(regs)
 
 
@@ -169,8 +176,8 @@ def main():
               f"ms ({t[3]}); max abs err {err[0]:.3e} [{card}]")
         if not ARGS.tree:
             split = {k: cs.device_ms(lambda: gs.grid_sample_dimg(
-                grid, dout, shape, "border"), name=f"dimg_{k}_kernel",
-                per_call=1) for k in STAGES}
+                grid, dout, shape, "border"), name=v,
+                per_call=1) for k, v in STAGES.items()}
             print(f"  K5b's kernels on it: " + ", ".join(
                 f"{k} {ms:.4f} ms" for k, ms in split.items()))
     if ARGS.tree:

@@ -23,7 +23,12 @@ Phases:
      F.grid_sample and its bound,
      F.grid_sample on the full-resolution volume and its bound on the
      pyramid, and the whole mipmap warp's device time (levels, pyramid,
-     K1) on the same inputs; batch-4 forwards with and without
+     K1) on the same inputs; K5a on each batch-40 head's grid and levels
+     over the 256 px source, its three kernels apart, beside its plain
+     autograd, F.grid_sample's backward to the volume, its bound and the
+     bound that writes the full-resolution stack, and the torch parts of
+     the parent commit's route (the stack's zero fill and the rebuild's
+     adjoint); batch-4 forwards with and without
      anti-aliasing held against the port's CPU path (out 5e-4, grid and
      flow 1e-4), and the device time of a few forwards by kernel group
      with the idle share;
@@ -40,10 +45,11 @@ Phases:
      below an integer, each K2 and K4 launch of an antialias=False step and
      each K5a and K5b launch of a forward whose input needs a gradient held
      against the plain versions and their autograd (1e-5 scaled by
-     max(1, max|ref|)); K5b on that forward's d/dout with the identity
-     grid, the recorded one, a zoom-in and a border pile in the three
-     padding modes, held the same way and run three times, equal to the
-     bit, the skewed ones timed; train imgs/s over about 5 s and the peak
+     max(1, max|ref|)); K5a and K5b on that forward's d/dout with the
+     identity grid, a recorded one, a zoom-in and a border pile in the
+     three padding modes, held the same way and run three times, equal to
+     the bit, the skewed ones timed; K5a timed on each recorded launch and
+     on the skewed grids as in phase 3; train imgs/s over about 5 s and the peak
      memory of a step; the device time of each head's mipmap warp and its backward to
      the grid; the device time of a step by kernel group with the idle
      share; and one step's loss and gradients on the card against the
@@ -89,8 +95,8 @@ Phases:
      stack as a volume for the mipmap kernels; torch.bmm of the separable
      weights for K6), each beside the card; K1's
      figures are those of a served batch-128 forward, per launch, K2's
-     those of an AR batch, K5b's those of the train phase's check (its
-     three kernels a call), and the
+     those of an AR batch, K5a's and K5b's those of the train phase's
+     check (three kernels a call each), and the
      N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train and the AR apps) and
      whose "check_launches" are the side checks' (the antialias=False step,
@@ -195,8 +201,8 @@ KERNEL_INFO = {  # name: (source, the TPU kernel it replaces)
                               "gangealing_tpu/ops/pallas_mipmap.py:131"),
     "grid_sample_dgrid": ("gangealing_torch/csrc/grid_sample.cu",
                           "gangealing_tpu/ops/pallas_grid_sample.py:91"),
-    "mipmap_sample_dstack": ("gangealing_torch/csrc/mipmap_sample.cu",
-                             "gangealing_tpu/ops/pallas_mipmap.py:105"),
+    "mipmap_sample_dpyramid": ("gangealing_torch/csrc/mipmap_sample.cu",
+                               "gangealing_tpu/ops/pallas_mipmap.py:105"),
     "grid_sample_dimg": ("gangealing_torch/csrc/grid_sample.cu",
                          "gangealing_tpu/ops/pallas_grid_sample.py:64"),
     "splat": ("gangealing_torch/csrc/splat.cu",
@@ -219,6 +225,8 @@ F32_OPS_PER_S = 67e12
 
 # K5b's kernels a call: bin, gather, merge.
 K5B_KERNELS = 3
+# K5a's kernels, by a part of their names: bin, gather, merge.
+K5A_KERNEL_NAMES = ("bin_kernel", "dpyramid_gather", "dpyramid_merge")
 # K5b's skewed grids: a zoom-in by 4 (every point in a sixteenth of the
 # image) and a zoom-out by 2 (three quarters of the points clamped onto the
 # edge texels under border padding).
@@ -523,9 +531,10 @@ def sampler_ops(name, points, C):
     per_channel = {"mipmap_sample": 2 * 4 * 2 + 3, "grid_sample": 4 * 2,
                    "mipmap_sample_dcoords": 2 * 4 * 4,
                    "grid_sample_dgrid": 4 * 4,
-                   "mipmap_sample_dstack": 2 * 4 * 2,
+                   "mipmap_sample_dpyramid": 2 * 9 * 2,
                    "grid_sample_dimg": 4 * 2}[name]
-    per_point = 40 if name.endswith(("dcoords", "dgrid")) else 20
+    per_point = 40 if name.endswith(("dcoords", "dgrid", "dpyramid")) \
+        else 20
     return points * (C * per_channel + per_point)
 
 
@@ -1014,7 +1023,15 @@ def serve(dev, card):
     path_err, k1_calls, warps, k2_calls = kernels_at_path_shapes(
         model, no_aa, requests)
     k1_path = k1_at_path_shapes(k1_calls, warps, card)
-    del k1_calls, warps
+    # K5a on each head's grid over the 256 px source at the levels it gave
+    # K1 (clones: a tensor made in inference mode cannot enter autograd)
+    dout = torch.randn(40, 3, 128, 128, device=dev, generator=g)
+    k5a_times([(f"the {head} head's grid of a served batch-40 forward",
+                args[0].shape, args[1].clone(), args[2].clone(), dout,
+                args[3])
+               for head, (args, _) in zip(("similarity", "flow"),
+                                          k1_calls[40])], card)
+    del k1_calls, warps, dout
     # K2 on the inputs each head of the antialias=False forward gave it
     for head, (args, _) in zip(("similarity", "flow"), k2_calls):
         print_k2(f"in the {head} head of an antialias=False forward at "
@@ -1073,9 +1090,14 @@ def k4_graph(a):
 
 
 def k5a_graph(a):
-    grid, levels, dout, stack_shape, pm = a
-    s = torch.zeros(stack_shape, device=grid.device, requires_grad=True)
-    return mipmap_ops._sample_stack(s, grid, levels, pm), (s,), dout
+    shape, grid, levels, dout, pm = a
+    N, dev = grid.shape[0], grid.device
+    level0 = torch.zeros(N, shape.channels, shape.size, shape.size,
+                         device=dev, requires_grad=True)
+    coarse = torch.zeros(N, mipmap_ops._coarse_floats(shape), device=dev,
+                         requires_grad=True)
+    return (_sample_pyramid(mipmap_ops.Pyramid(level0, coarse, shape), grid,
+                            levels, pm), (level0, coarse), dout)
 
 
 def k5b_graph(a):
@@ -1117,6 +1139,104 @@ def k5b_checks(k5b, errs, card):
               f"{t[0]:.4f} ms, plain autograd {t[1]:.4f} ms, backward of "
               f"F.grid_sample to the image {t[4]:.4f} ms; bound {t[2]:.4f} "
               f"ms ({t[3]}) [{card}]")
+
+
+def k5a_checks(k5a, errs):
+    """K5a beyond the recorded launches: on the check's d/dout and pyramid
+    (of a (40, 3, 128, 128) image), the identity grid, the recorded grid
+    whose levels span the most, a zoom-in and a border pile (SKEWED), each
+    at the levels the warp gives it (the recorded ones for the recorded
+    grid) in the three padding modes, held against the plain autograd and
+    run three times, equal to the bit. Returns the skewed inputs."""
+    args = max((a for a, _ in k5a), key=lambda a: float(a[2].max()))
+    shape, grid, levels, dout, _ = args
+    N, dev, H = grid.shape[0], grid.device, shape.height
+
+    def with_levels(g):
+        return g, mipmap_ops.jmax(mipmap_levels(g, H, H, 3.5),
+                                  0.0).contiguous()
+    grids = {"identity": with_levels(grid_sample_ops.identity_grid(
+        N, *grid.shape[1:3], device=dev)), "recorded": (grid, levels)}
+    grids.update({k: with_levels(scaled_grid(N, grid.shape[1], s, dev))
+                  for k, s in SKEWED.items()})
+    for kind, (g, lv) in grids.items():
+        for pm in PADDINGS:
+            runs = [mipmap_ops.mipmap_sample_dpyramid(shape, g, lv, dout, pm)
+                    for _ in range(3)]
+            check(all(torch.equal(a, b) for r in runs[1:]
+                      for a, b in zip(runs[0], r)),
+                  f"K5a gave other bits on the same inputs ({kind}, {pm})")
+            hold("mipmap_sample_dpyramid", backward_pairs(
+                [((shape, g, lv, dout, pm), runs[0])], k5a_graph), errs)
+    print(f"K5a on identity, recorded, zoom-in and border-pile grids over "
+          f"{(N, shape.channels, H, shape.width)} in the three padding "
+          f"modes: max abs err vs the plain autograd "
+          f"{errs['mipmap_sample_dpyramid']:.3e} (tolerance {KERNEL_TOL:g} "
+          f"scaled by max(1, max|ref|)), three launches each equal to the "
+          f"bit")
+    return [(f"the {k} grid", shape, *grids[k], dout, "border")
+            for k in SKEWED]
+
+
+def parent_route_ms(shape, N, dev):
+    """Device time of the parts of the parent commit's K5a route that were
+    torch ops: the zero fill of a full-resolution (N, D, C, H, W) d/dstack,
+    and its map to the pyramid's gradient, the autograd of the crop, the
+    stack and the upsampling of ``_rebuild_stack`` (its atomic scatter into
+    the stack is timed by ``chip_mipmap_variants.py --tree`` on the parent's
+    tree)."""
+    stack_shape = (N, shape.num_levels, shape.channels, shape.height,
+                   shape.width)
+    level0 = torch.zeros(N, shape.channels, shape.size, shape.size,
+                         device=dev, requires_grad=True)
+    # (the coarse levels' floats counted here: the parent's package, which
+    # chip_mipmap_variants.py --tree imports, has no _coarse_floats)
+    coarse = torch.zeros(N, sum(shape.texel() * s * s
+                                for s in shape.sides()[1:]),
+                         device=dev, requires_grad=True)
+    dstack = torch.randn(stack_shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(4))
+
+    def adjoint():
+        stack = _rebuild_stack(mipmap_ops.Pyramid(level0, coarse, shape))
+        return torch.autograd.grad(stack, (level0, coarse), dstack)
+    return (device_ms(lambda: torch.zeros(stack_shape, device=dev)),
+            device_ms(adjoint))
+
+
+def k5a_times(cases, card):
+    """K5a on each case's inputs (what, pyramid shape, grid, levels, dout,
+    padding): its three kernels' device time and its split, the plain
+    autograd's, the backward of F.grid_sample to the stack as a volume
+    (d/dstack alone, less work than K5a's route, which also maps it to the
+    pyramid), two bounds (bytes that write the pyramid's gradient once,
+    K5a's own count, and bytes that write the stack, the parent route's)
+    and the parent route's torch parts."""
+    for what, *args in cases:
+        shape, grid, levels, dout, _ = args
+        N, dev = grid.shape[0], grid.device
+        t = backward_times([(tuple(args), mipmap_ops.mipmap_sample_dpyramid(
+            *args))], k5a_graph, mipmap_ops.mipmap_sample_dpyramid)
+        split = [device_ms(lambda: mipmap_ops.mipmap_sample_dpyramid(*args),
+                           name=k, per_call=1) for k in K5A_KERNEL_NAMES]
+        stack_bytes = 4 * N * shape.num_levels * shape.channels * \
+            shape.height * shape.width
+        old = bound(nbytes(grid, levels, dout) + stack_bytes,
+                    sampler_ops("mipmap_sample_dpyramid", levels.numel(),
+                                shape.channels))
+        fill_ms, adjoint_ms = parent_route_ms(shape, N, dev)
+        image = (N, shape.channels, shape.height, shape.width)
+        print(f"K5a on {what}, pyramid of {image} (side {shape.size}), "
+              f"grid {tuple(grid.shape)}, levels "
+              f"{float(levels.min()):.2f}-{float(levels.max()):.2f}, device "
+              f"time: kernels {t[0]:.4f} ms (bin {split[0]:.4f}, gather "
+              f"{split[1]:.4f}, merge {split[2]:.4f}), plain autograd "
+              f"{t[1]:.4f} ms, backward of F.grid_sample to the volume "
+              f"(d/dstack only) {t[4]:.4f} ms; bound writing the pyramid's "
+              f"gradient {t[2]:.4f} ms ({t[3]}), writing the stack "
+              f"{old[0]:.4f} ms; the parent route's torch parts: zero fill "
+              f"{fill_ms:.4f} ms, rebuild adjoint {adjoint_ms:.4f} ms "
+              f"[{card}]")
 
 
 def backward_pairs(calls, graph_of):
@@ -1165,14 +1285,16 @@ def backward_times(calls, graph_of, kernel):
     elif name == "mipmap_sample_dcoords":
         x = as_volume(_rebuild_stack(args[0]))
         g = wrt = volume_grid(grid, args[2], x.shape[2]).requires_grad_()
-    else:  # mipmap_sample_dstack: grid, levels, dout, shape, padding
-        N, D, C, H, W = args[3]
-        x = wrt = torch.zeros(N, C, D, H, W, device=grid.device,
-                              requires_grad=True)
-        g = volume_grid(grid, args[1], D)
+    else:  # mipmap_sample_dpyramid: shape, grid, levels, dout, padding
+        shape = args[0]
+        x = wrt = torch.zeros(grid.shape[0], shape.channels,
+                              shape.num_levels, shape.height, shape.width,
+                              device=grid.device, requires_grad=True)
+        g = volume_grid(grid, args[2], shape.num_levels)
     lib_out = F.grid_sample(x, g, padding_mode=pm, align_corners=False)
     lib_dout = dout[:, :, None] if lib_out.ndim == 5 else dout
-    per_call = K5B_KERNELS if name == "grid_sample_dimg" else None
+    per_call = {"grid_sample_dimg": K5B_KERNELS,
+                "mipmap_sample_dpyramid": len(K5A_KERNEL_NAMES)}.get(name)
     return (device_ms(lambda: kernel(*args), per_call=per_call),
             device_ms(lambda: torch.autograd.grad(plain_out, inputs, dout,
                                                   retain_graph=True)),
@@ -1203,8 +1325,8 @@ def cli_run(dev):
     check(launches["mipmap_sample"] == 2 * TRAIN_ITERS
           and launches["mipmap_sample_dcoords"] == 2 * TRAIN_ITERS,
           "expected 2 K1 and 2 K3 launches per train step")
-    check(launches["mipmap_sample_dstack"] == 0,
-          "K5a launched for a stack that needs no gradient")
+    check(launches["mipmap_sample_dpyramid"] == 0,
+          "K5a launched for a pyramid that needs no gradient")
     run_dir = os.path.join(d, "results", "smoke")
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         scalars = [json.loads(line) for line in f if line.strip()]
@@ -1355,23 +1477,24 @@ def train(dev, card):
          * 2 - 1).requires_grad_()
     cot = torch.randn(TRAIN_BATCH, 3, 128, 128, generator=rng, device=dev)
     zero_launches()
-    with recorded(mipmap_ops, "mipmap_sample_dstack") as k5a, \
+    with recorded(mipmap_ops, "mipmap_sample_dpyramid") as k5a, \
             recorded(grid_sample_ops, "grid_sample_dimg") as k5b:
         loss = ((state.t(x)[0] + t_no_aa(x)[0]) * cot).sum()
         loss.backward()
     torch.cuda.synchronize()
     image_launches = dict(LAUNCHES)
-    check(image_launches["mipmap_sample_dstack"] == 2
+    check(image_launches["mipmap_sample_dpyramid"] == 2
           and image_launches["grid_sample_dimg"] == 2,
           f"a forward with an input that needs a gradient launched "
           f"{image_launches}")
-    hold("mipmap_sample_dstack", backward_pairs(k5a, k5a_graph), errs)
+    hold("mipmap_sample_dpyramid", backward_pairs(k5a, k5a_graph), errs)
     hold("grid_sample_dimg", backward_pairs(k5b, k5b_graph), errs)
+    k5a_skewed = k5a_checks(k5a, errs)
     k5b_checks(k5b, errs, card)
     print(f"K2 and K4 launches of an antialias=False step, K5a and K5b of a "
           f"forward whose input needs a gradient: max abs err K2 "
           f"{errs['grid_sample']:.3e}, K4 {errs['grid_sample_dgrid']:.3e}, "
-          f"K5a {errs['mipmap_sample_dstack']:.3e}, K5b "
+          f"K5a {errs['mipmap_sample_dpyramid']:.3e}, K5b "
           f"{errs['grid_sample_dimg']:.3e}")
 
     times = {
@@ -1379,11 +1502,15 @@ def train(dev, card):
             k3, k3_graph, mipmap_ops.mipmap_sample_dcoords),
         "grid_sample_dgrid": backward_times(
             k4, k4_graph, grid_sample_ops.grid_sample_dgrid),
-        "mipmap_sample_dstack": backward_times(
-            k5a, k5a_graph, mipmap_ops.mipmap_sample_dstack),
+        "mipmap_sample_dpyramid": backward_times(
+            k5a, k5a_graph, mipmap_ops.mipmap_sample_dpyramid),
         "grid_sample_dimg": backward_times(
             k5b, k5b_graph, grid_sample_ops.grid_sample_dimg),
     }
+    # K5a on each head's recorded launch over the check's image and on the
+    # skewed grids
+    k5a_times([(f"the recorded launch {i + 1} of the check", *a)
+               for i, (a, _) in enumerate(k5a)] + k5a_skewed, card)
     for head, (args, _) in zip(("similarity", "flow"), warps_trained):
         img, grid, _, pm = args
         w_ms, w_k_ms = warp_ms(img.detach(), grid.detach(), pm, backward=True)

@@ -34,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"grid_sample": 0, "grid_sample_dgrid": 0, "grid_sample_dimg": 0,
             "mipmap_sample": 0, "mipmap_sample_dcoords": 0,
-            "mipmap_sample_dstack": 0, "splat": 0}
+            "mipmap_sample_dpyramid": 0, "splat": 0}
 PADDING_CODES = {"border": 0, "reflection": 1, "zeros": 2}
 
 
@@ -109,8 +109,10 @@ def load_kernels() -> ctypes.CDLL:
     lib.gg_mipmap_pyramid_fwd.restype = i32
     lib.gg_mipmap_pyramid_dcoords.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
     lib.gg_mipmap_pyramid_dcoords.restype = i32
-    lib.gg_mipmap_sample_dstack.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
-    lib.gg_mipmap_sample_dstack.restype = i32
+    lib.gg_mipmap_dpyramid_scratch.argtypes = [i32] * 5
+    lib.gg_mipmap_dpyramid_scratch.restype = ctypes.c_longlong
+    lib.gg_mipmap_dpyramid.argtypes = [ptr] * 6 + [i32] * 10 + [ptr]
+    lib.gg_mipmap_dpyramid.restype = i32
     lib.gg_splat_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     lib.gg_splat_fwd.restype = i32
     return lib

@@ -132,16 +132,6 @@ __device__ __forceinline__ void sample_slopes(const float* __restrict__ plane,
   *dy = ay;
 }
 
-// plane[off] += g * w for each corner with a weight: the transpose of
-// sample(), as a scatter.
-__device__ __forceinline__ void scatter(float* __restrict__ plane,
-                                        const Taps& t, float g) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (t.w[k] != 0.f) atomicAdd(plane + t.off[k], g * t.w[k]);
-  }
-}
-
 }  // namespace gg
 
 // Launch kernel<PAD> for the padding code in the enclosing function's

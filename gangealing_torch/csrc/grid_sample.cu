@@ -40,21 +40,18 @@
 // which accumulates WY^T @ (dout * WX) in VMEM over a sequential grid of
 // point blocks and so is deterministic. Here it is a binned gather with no
 // atomics and no zero-fill, the same to the bit from run to run:
-//  1. bin: each point's key is the tile (kTileW x kTileH texels) of its
-//     top-left clamped tap, times 4 classes that say whether that tap lies
-//     on the tile's last row, last column or both (then the footprint also
-//     reaches the tile below, right or diagonal, since a clamped corner
-//     lies at most one texel right and one down). A point whose four
-//     weights are 0 (zeros padding) reaches nothing and has no key. One
-//     cluster of kCluster blocks an image sorts the points into per-key
-//     buckets in point order, a stable counting sort with no atomics: each
-//     warp counts its own run of points with __match_any_sync, the blocks
-//     read each other's counts from distributed shared memory, and each
-//     place their points by the scanned counts. Block 0 writes the image's
-//     work list: each tile's candidates as four segments of the bucketed
-//     order (its own bucket and its left, upper and upper-left neighbours'
-//     edge classes), cut into work items of kSlots candidates, and each
-//     item's tile.
+//  1. bin (binned.cuh, shared with K5a): each point's key is the tile
+//     (kTileW x kTileH texels) of its top-left clamped tap, times 4
+//     classes that say whether that tap lies on the tile's last row, last
+//     column or both (then the footprint also reaches the tile below, right
+//     or diagonal, since a clamped corner lies at most one texel right and
+//     one down). A point whose four weights are 0 (zeros padding) reaches
+//     nothing and has no key. One cluster of blocks an image sorts the
+//     points into per-key buckets in point order with no atomics, counting
+//     the keys in passes, so no image size is refused, and writes the
+//     image's work list: each tile's candidates (its own bucket and its
+//     left, upper and upper-left neighbours' edge classes) cut into work
+//     items of kSlots candidates.
 //  2. gather: one warp an item, with no block-wide barrier. It loads its
 //     candidates' indices, then their coordinates and first kGroup
 //     channels of dout (all loads of a step issued together), sorts the
@@ -81,14 +78,12 @@
 // over several warps. The scratch (bucketed indices, work lists, partial
 // tiles) is allocated by the caller.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bilinear.cuh"
-
-namespace cg = cooperative_groups;
+#include "binned.cuh"
 
 namespace {
 
@@ -241,24 +236,8 @@ int launch_k2(dim3 blocks, dim3 threads, cudaStream_t s, int padding,
 
 // ---- K5b ----
 
-constexpr int kThreads = 256;  // the bin kernel's blocks
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileW = 16;     // a tile's texels across
-constexpr int kTileH = 4;      // and down
-constexpr int kTileTexels = kTileW * kTileH;
-// keys a tile: interior, last row, corner, last column
-constexpr int kClasses = 4;
-constexpr int kCluster = 8;    // blocks that bin one image
-// rounds of 32 points whose loads a bin warp issues together
-constexpr int kBinRounds = 8;
-constexpr int kGatherWarps = 4;  // warps of a gather block, an item each
-constexpr int kSlots = 128;    // candidates a work item holds
-constexpr int kSlotRounds = kSlots / 32;
 constexpr int kFine = (kTileW + 1) * (kTileH + 1);  // local keys of an item
 constexpr int kGroup = 4;      // channels a gather pass sums (a float4)
-static_assert(kSlotRounds * 32 == kSlots, "whole rounds");
-static_assert(kTileTexels % 32 == 0, "whole texels a lane");
-static_assert(kSlots <= 65535, "16-bit slots and counts");
 
 // A gather warp's shared memory: per candidate, in the order of its
 // sorted position, the weight it puts on each texel it reaches (wq.x, .y,
@@ -275,251 +254,29 @@ struct ItemShared {
 };
 constexpr size_t kItemShared = (sizeof(ItemShared) + 15) & ~(size_t)15;
 
-// Exclusive prefix sum of s[0, len) in place by the whole block; returns
-// the total. s_warp holds kWarps + 1 ints.
-__device__ int block_exclusive_scan(int* s, int len, int* s_warp) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (len + kThreads - 1) / kThreads;
-  const int lo = min(tid * per, len), hi = min(lo + per, len);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += s[i];
-  int incl = sum;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31) s_warp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int v = lane < kWarps ? s_warp[lane] : 0;
-    int w = v;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += u;
-    }
-    if (lane < kWarps) s_warp[lane] = w - v;
-    if (lane == kWarps - 1) s_warp[kWarps] = w;
-  }
-  __syncthreads();
-  int run = s_warp[warp] + incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int v = s[i];
-    s[i] = run;
-    run += v;
-  }
-  const int total = s_warp[kWarps];
-  __syncthreads();
-  return total;
-}
-
-// The lanes of the warp with the same key as this lane, and whether this
-// lane leads them (the lowest such lane).
-struct Group {
-  unsigned mask;
-  bool lead;
-};
-
-__device__ __forceinline__ Group group_of(int key) {
-  const unsigned m = __match_any_sync(0xffffffffu, key);
-  return Group{m, (int)(threadIdx.x & 31) == __ffs(m) - 1};
-}
-
-__device__ __forceinline__ int rank_in(const Group& g) {
-  return __popc(g.mask & ((1u << (threadIdx.x & 31)) - 1));
-}
-
-// The bin key (tile * kClasses + class) of a point at grid coordinates g,
-// or -1 when it reaches no texel.
+// K5b's bin keys: one entry a point, the tile of its top-left clamped
+// tap; a point whose four weights are 0 (zeros padding) reaches nothing
+// and has none.
 template <int PAD>
-__device__ __forceinline__ int bin_key(float2 g, int H, int W, int tiles_x) {
-  const gg::Taps t = gg::make_taps<PAD>(g.x, g.y, H, W);
-  if (t.w[0] == 0.f && t.w[1] == 0.f && t.w[2] == 0.f && t.w[3] == 0.f) {
-    return -1;
-  }
-  const int ky = t.off[0] / W, kx = t.off[0] - ky * W;
-  const bool row = ky % kTileH == kTileH - 1, col = kx % kTileW == kTileW - 1;
-  // last row 1, corner 2, last column 3: the tile below reads classes
-  // 1-2, the tile to the right 2-3, the diagonal one 2
-  const int cls = col ? (row ? 2 : 3) : (row ? 1 : 0);
-  return ((ky / kTileH) * tiles_x + kx / kTileW) * kClasses + cls;
-}
+struct DimgKeys {
+  static constexpr int kEntries = 1;
+  using Point = float2;
+  const float2* grid;
+  Tiling tl;
+  int P, H, W;
 
-// K5b's work list of one image: each tile's candidates as four segments of
-// the bucketed point order (its own bucket, then the left tile's classes
-// 2-3, the upper tile's 1-2 and the upper-left tile's 2), the first of its
-// work items (kSlots candidates each; first[nt] items in all) and the tile
-// of each item.
-struct Work {
-  int4* seg;      // [nt][2]: starts, then lengths
-  int* first;     // [nt + 1]
-  int* item_tile; // [nt + extra]
+  __device__ __forceinline__ float2 load(int n, int i) const {
+    return grid[(int64_t)n * P + i];
+  }
+  __device__ __forceinline__ void keys(float2 g, int (&key)[1]) const {
+    const gg::Taps t = gg::make_taps<PAD>(g.x, g.y, H, W);
+    if (t.w[0] == 0.f && t.w[1] == 0.f && t.w[2] == 0.f && t.w[3] == 0.f) {
+      return;
+    }
+    const int ky = t.off[0] / W, kx = t.off[0] - ky * W;
+    key[0] = tile_key(tl, 0, ky, kx, 2);
+  }
 };
-
-__device__ __forceinline__ Work work_of(char* base, int nt, int extra,
-                                        int n) {
-  const size_t per = sizeof(int4) * 2 * nt + sizeof(int) * (2 * nt + 1 + extra);
-  char* at = base + n * ((per + 15) & ~(size_t)15);
-  Work w;
-  w.seg = reinterpret_cast<int4*>(at);
-  w.first = reinterpret_cast<int*>(w.seg + 2 * nt);
-  w.item_tile = w.first + nt + 1;
-  return w;
-}
-
-// One cluster of kCluster blocks an image bins its points: each block
-// counts its run of the points (each warp its own run, in rounds of 32),
-// the blocks read each other's counts from distributed shared memory, and
-// every block takes the buckets' starts (an exclusive scan of the totals)
-// and its warps' offsets in them, then places its points' indices in
-// point order. Block 0 writes the image's work list.
-template <int PAD>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-    dimg_bin_kernel(const float* __restrict__ grid, int* __restrict__ order,
-                    char* __restrict__ work, int P, int H, int W, int tiles_x,
-                    int K, int extra) {
-  extern __shared__ int s_rows[];   // [kWarps][K], then [K], [K + 1], [nt]
-  int* s_tot = s_rows + kWarps * K;  // this block's counts, for the cluster
-  int* s_start = s_tot + K;          // the buckets' starts
-  __shared__ int s_warp[kWarps + 1];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int n = blockIdx.y, nt = K / kClasses;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float2* pts = reinterpret_cast<const float2*>(grid) + (int64_t)n * P;
-  // each warp's run: whole rounds, kCluster * kWarps runs covering P
-  const int per_warp = (P + kCluster * kWarps * 32 - 1) /
-                       (kCluster * kWarps * 32) * 32;
-  const int first = (rank * kWarps + warp) * per_warp;
-  const int last = min(first + per_warp, P);
-
-  // The keys of kBinRounds rounds of the warp's run from `from`.
-  auto keys_of = [&](int from, int (&key)[kBinRounds]) {
-    float2 g[kBinRounds];
-#pragma unroll
-    for (int r = 0; r < kBinRounds; ++r) {
-      const int i = from + r * 32 + lane;
-      g[r] = i < last ? pts[i] : make_float2(0.f, 0.f);
-    }
-#pragma unroll
-    for (int r = 0; r < kBinRounds; ++r) {
-      key[r] = from + r * 32 + lane < last
-                   ? bin_key<PAD>(g[r], H, W, tiles_x) : -1;
-    }
-  };
-  for (int e = tid; e < kWarps * K; e += kThreads) s_rows[e] = 0;
-  __syncthreads();
-  for (int from = first; from < last; from += kBinRounds * 32) {
-    int key[kBinRounds];
-    keys_of(from, key);
-#pragma unroll
-    for (int r = 0; r < kBinRounds; ++r) {
-      const Group g = group_of(key[r]);
-      if (key[r] >= 0 && g.lead) s_rows[warp * K + key[r]] += __popc(g.mask);
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int k = tid; k < K; k += kThreads) {
-    int sum = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += s_rows[w * K + k];
-    s_tot[k] = sum;
-  }
-  cluster.sync();
-  // Each key's total over the cluster, and this block's warps' offsets
-  // from the bucket's start: the earlier blocks' counts, then the earlier
-  // warps'.
-  for (int k = tid; k < K; k += kThreads) {
-    int total = 0, before = 0;
-    for (int q = 0; q < kCluster; ++q) {
-      const int v = cluster.map_shared_rank(s_tot, q)[k];
-      total += v;
-      if (q < rank) before += v;
-    }
-    s_start[k] = total;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int v = s_rows[w * K + k];
-      s_rows[w * K + k] = before;
-      before += v;
-    }
-  }
-  cluster.sync();  // no block leaves while another reads its counts
-  const int placed = block_exclusive_scan(s_start, K, s_warp);
-  if (tid == 0) s_start[K] = placed;
-  __syncthreads();
-  int* dst = order + (int64_t)n * P;
-  for (int from = first; from < last; from += kBinRounds * 32) {
-    int key[kBinRounds];
-    keys_of(from, key);
-#pragma unroll
-    for (int r = 0; r < kBinRounds; ++r) {
-      const Group g = group_of(key[r]);
-      if (key[r] >= 0) {
-        dst[s_start[key[r]] + s_rows[warp * K + key[r]] + rank_in(g)] =
-            from + r * 32 + lane;
-      }
-      __syncwarp();
-      if (key[r] >= 0 && g.lead) s_rows[warp * K + key[r]] += __popc(g.mask);
-      __syncwarp();
-    }
-  }
-  if (rank != 0) return;
-
-  // The work list. A tile's candidates: its own bucket, the left tile's
-  // classes 2-3, the upper tile's 1-2, the upper-left tile's 2; kSlots an
-  // item.
-  const Work w = work_of(work, nt, extra, n);
-  int* s_items = s_start + K + 1;
-  for (int t = tid; t < nt; t += kThreads) {
-    const int tx = t % tiles_x, ty = t / tiles_x, o = t * kClasses;
-    const int u = o - tiles_x * kClasses;
-    const int4 start = make_int4(s_start[o], tx > 0 ? s_start[o - 2] : 0,
-                                 ty > 0 ? s_start[u + 1] : 0,
-                                 tx > 0 && ty > 0 ? s_start[u - 2] : 0);
-    const int4 len = make_int4(
-        s_start[o + 4] - s_start[o], tx > 0 ? s_start[o] - s_start[o - 2] : 0,
-        ty > 0 ? s_start[u + 3] - s_start[u + 1] : 0,
-        tx > 0 && ty > 0 ? s_start[u - 1] - s_start[u - 2] : 0);
-    w.seg[2 * t] = start;
-    w.seg[2 * t + 1] = len;
-    const int cand = len.x + len.y + len.z + len.w;
-    s_items[t] = max(1, (cand + kSlots - 1) / kSlots);
-  }
-  __syncthreads();
-  const int n_items = block_exclusive_scan(s_items, nt, s_warp);
-  for (int t = tid; t < nt; t += kThreads) {
-    const int from = s_items[t], to = t + 1 < nt ? s_items[t + 1] : n_items;
-    w.first[t] = from;
-    for (int i = from; i < to; ++i) w.item_tile[i] = t;
-  }
-  if (tid == 0) w.first[nt] = n_items;
-}
-
-// Exclusive prefix sum of cnt[0, kFine) by one warp into run[0, kFine],
-// run[kFine] the total.
-__device__ __forceinline__ void warp_scan(const unsigned short* cnt,
-                                          unsigned short* run, int lane) {
-  constexpr int per = (kFine + 31) / 32;
-  const int lo = min(lane * per, kFine), hi = min(lo + per, kFine);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += cnt[i];
-  int incl = sum;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  int r = incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    run[i] = (unsigned short)r;
-    r += cnt[i];
-  }
-  if (lane == 31) run[kFine] = (unsigned short)incl;
-  __syncwarp();
-}
 
 // Each warp walks the image's work items on its own: item i is tile t's
 // candidates [s * kSlots, (s + 1) * kSlots) of its list, s = i - first[t].
@@ -547,8 +304,6 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
        i += gridDim.x * kGatherWarps) {
     const int t = wk.item_tile[i], s = i - wk.first[t];
     const int4 start = wk.seg[2 * t], len = wk.seg[2 * t + 1];
-    const int seg_start[4] = {start.x, start.y, start.z, start.w};
-    const int seg_len[4] = {len.x, len.y, len.z, len.w};
     const int v0 = s * kSlots;
     const int m = min(len.x + len.y + len.z + len.w - v0, kSlots);
     const int x0 = (t % tiles_x) * kTileW, y0 = (t / tiles_x) * kTileH;
@@ -559,15 +314,7 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
 #pragma unroll
     for (int r = 0; r < kSlotRounds; ++r) {
       const int j = r * 32 + lane;
-      p[r] = -1;
-      if (j < m) {
-        int v = v0 + j, q = 0;
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          if (v >= seg_len[q]) v -= seg_len[q++];
-        }
-        p[r] = ord[seg_start[q] + v];
-      }
+      p[r] = j < m ? candidate(ord, start, len, v0 + j) : -1;
     }
     float2 g[kSlotRounds];
 #pragma unroll
@@ -600,7 +347,7 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
         d[r][c] = p[r] >= 0 && c < C ? dn[(int64_t)c * P + p[r]] : 0.f;
       }
     }
-    warp_scan(sh.cnt, sh.run, lane);
+    warp_scan<kFine>(sh.cnt, sh.run, lane);
     for (int k = lane; k < kFine; k += 32) sh.pos[k] = sh.run[k];
     __syncwarp();
     // Each candidate at its sorted place: the weight of the corners that
@@ -752,30 +499,23 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
 
 // K5b's geometry and the byte offsets of its scratch.
 struct DimgPlan {
-  int tiles_x, tiles_y, K, extra;
-  size_t order, work, partial, bytes, bin_shared;
+  Tiling tl;
+  BinPlan bin;
+  size_t order, work, partial, bytes;
 };
-
-size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
 
 bool plan_dimg(DimgPlan* q, int N, int C, int H, int W, int P) {
   if (N <= 0 || C <= 0 || H <= 0 || W <= 0 || P <= 0) return false;
-  q->tiles_x = (W + kTileW - 1) / kTileW;
-  q->tiles_y = (H + kTileH - 1) / kTileH;
-  const int64_t nt = (int64_t)q->tiles_x * q->tiles_y;
-  q->K = (int)(nt * kClasses);
-  q->extra = (int)(((int64_t)kClasses * P + kSlots - 1) / kSlots);
-  q->bin_shared = sizeof(int) * ((size_t)(kWarps + 2) * q->K + 1 + nt);
-  if (nt > 65535 || q->bin_shared > 200 * 1024) return false;
-  const size_t per_work =
-      align16(sizeof(int4) * 2 * nt + sizeof(int) * (2 * nt + 1 + q->extra));
+  q->tl = make_tiling(1, &H, &W);
+  if (!plan_bin(&q->bin, q->tl, 1, P)) return false;
   size_t at = 0;
   q->order = at;
   at = align16(at + sizeof(int) * (size_t)N * P);
   q->work = at;
-  at = align16(at + per_work * N);
+  at = align16(at + q->bin.work * N);
   q->partial = at;
-  at = align16(at + sizeof(float) * (size_t)N * q->extra * C * kTileTexels);
+  at = align16(at + sizeof(float) * (size_t)N * q->bin.extra * C *
+                        kTileTexels);
   q->bytes = at;
   return true;
 }
@@ -787,28 +527,25 @@ int launch_dimg(const float* grid, const float* dout, float* dimg,
   int* order = reinterpret_cast<int*>(scratch + q.order);
   char* work = scratch + q.work;
   float* partial = reinterpret_cast<float*>(scratch + q.partial);
-  const int nt = q.tiles_x * q.tiles_y;
-  cudaError_t err;
-  if ((err = cudaFuncSetAttribute(dimg_bin_kernel<PAD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)q.bin_shared)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(dimg_gather_kernel<PAD>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)(kGatherWarps * kItemShared))) !=
-          cudaSuccess) {
-    return (int)err;
-  }
-  dimg_bin_kernel<PAD><<<dim3(kCluster, N), kThreads, q.bin_shared, s>>>(
-      grid, order, work, P, H, W, q.tiles_x, q.K, q.extra);
+  const int nt = q.bin.nt, tiles_x = q.tl.tiles_x[0];
+  const int tiles_y = q.tl.tiles_y[0], extra = q.bin.extra;
+  const DimgKeys<PAD> keys{reinterpret_cast<const float2*>(grid), q.tl, P, H,
+                           W};
+  int rc = launch_bin(keys, q.tl, q.bin, N, order, work, P, s);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      dimg_gather_kernel<PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kGatherWarps * kItemShared));
+  if (err != cudaSuccess) return (int)err;
   // a warp for each tile's first item; later items go to the warps of
   // lower tiles in turn
   const int gather_blocks = (nt + kGatherWarps - 1) / kGatherWarps;
   dimg_gather_kernel<PAD><<<dim3(gather_blocks, N), kGatherWarps * 32,
                             kGatherWarps * kItemShared, s>>>(
-      grid, dout, order, work, partial, dimg, C, P, H, W, q.tiles_x,
-      q.tiles_y, q.extra);
+      grid, dout, order, work, partial, dimg, C, P, H, W, tiles_x, tiles_y,
+      extra);
   dimg_merge_kernel<<<dim3(gather_blocks, N), kGatherWarps * 32, 0, s>>>(
-      work, partial, dimg, C, H, W, q.tiles_x, q.tiles_y, q.extra);
+      work, partial, dimg, C, H, W, tiles_x, tiles_y, extra);
   return (int)cudaGetLastError();
 }
 
@@ -876,8 +613,7 @@ extern "C" int gg_grid_sample_dgrid(const float* img, const float* grid,
 }
 
 // K5b's scratch in bytes for these shapes, or -1 for shapes it does not
-// take (an image of more than about 1,250 tiles of kTileW x kTileH
-// texels, 280 x 280).
+// take.
 extern "C" long long gg_grid_sample_dimg_scratch(int N, int C, int H, int W,
                                                  int P) {
   DimgPlan q;

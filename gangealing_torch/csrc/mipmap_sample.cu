@@ -59,20 +59,41 @@
 // f + 1 as well, which the forward does not read, and just below an
 // integer level f + 1 the level f + 2, where lv - (f + 2) rounds to -1.
 //
-// K5a: d/dstack, backward. Replaces pallas_mipmap.py::_dimg_kernel, a
-// deterministic wy^T matmul accumulated over point blocks. Here each point
-// scatters dout x level weight x corner weight into the full-resolution
-// (N, D, C, H, W) d/dstack, with atomicAdd: the order of the sums, and so
-// the last bits, change from run to run. The autograd Function maps it to
-// d/dpyramid with the adjoint of the rebuild as torch ops, and launches it
-// only when the image needs a gradient; in the GANgealing step both warps
-// sample G's output, which carries none.
+// K5a: d/dpyramid, backward. Replaces pallas_mipmap.py::_dimg_kernel, a
+// deterministic wy^T matmul accumulated over point blocks. Here it is the
+// exact adjoint of K1 on the pyramid, written in the pyramid's own layout
+// (d/dlevel0 (N, C, S, S), d/dcoarse packed as the coarse levels, padding
+// channels 0) as a binned gather with no atomics and no memset, the same
+// to the bit from run to run, in three kernels (binned.cuh):
+//  1. bin: a point has an entry on each of its two levels whose tent
+//     max(0, 1 - |level - d|) is not 0 (none if its four tap weights are
+//     0), keyed by the tile of its footprint's top-left texel on that
+//     level: the 2x2 tap on level 0, on a coarse level the 3x3 window of
+//     its rebuilt corners. Every level of the pyramid is cut into 16 x 4
+//     tiles, numbered level by level.
+//  2. gather: a warp an item of up to kSlots candidates of one tile, as
+//     K5b's: it sorts them stably by their footprint's top-left texel and
+//     stores each at its sorted place with the weight it puts on each of
+//     the 3 x 3 texels from there (level 0: the tap's corner weights; a
+//     coarse level: K1's filter, tap_filter, each entry of the window that
+//     the rebuild clamps onto the edge texel summed there in window order;
+//     both times the level tent). Each lane sums its texels over the runs
+//     that can reach them in a fixed order, a float4 group of channels a
+//     pass, and writes every texel of the tile, zero where nothing lands.
+//  3. merge: adds a split tile's later items to its first, in item order.
+// What bounds it: the bytes (grid, levels and dout read once, the
+// pyramid's gradient written once) would take 8 us at the train check's
+// shapes; like K5b, it is held back by three launches and each kernel's
+// chain of dependent loads, groupings and scans. The autograd Function
+// launches it only when the image needs a gradient; in the GANgealing step
+// both warps sample G's output, which carries none.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bilinear.cuh"
+#include "binned.cuh"
 
 namespace {
 
@@ -266,6 +287,19 @@ __device__ __forceinline__ float tap(const float v[4], const gg::Taps& t) {
   return v[0] * t.w[0] + v[1] * t.w[1] + v[2] * t.w[2] + v[3] * t.w[3];
 }
 
+// The level tent of a point's level lv: its floor level f, clipped to
+// [0, D - 2], and the weights max(0, 1 - |lv - d|) of f and f + 1.
+struct Tent {
+  int f;
+  float lo, hi;
+};
+
+__device__ __forceinline__ Tent tent_of(float lv, int D) {
+  const float f = fminf(fmaxf(floorf(lv), 0.f), (float)(D - 2));
+  return Tent{(int)f, fmaxf(0.f, 1.f - fabsf(lv - f)),
+              fmaxf(0.f, 1.f - fabsf(lv - (f + 1.f)))};
+}
+
 // The level-0 tap of one channel plane, as the plain version sums it.
 __device__ __forceinline__ void level0_corners(const float* __restrict__ plane,
                                                const PointTaps& q,
@@ -297,11 +331,9 @@ __global__ void __launch_bounds__(kTileX* kTileY)
   int64_t i, pt;
   if (!tile_point(n, Ho, Wo, &i, &pt)) return;
   const PointTaps q = point_taps<PAD>(p, grid[2 * i], grid[2 * i + 1]);
-  const float lv = levels[i];
-  const float f = fminf(fmaxf(floorf(lv), 0.f), (float)(p.D - 2));
-  const float w_lo = fmaxf(0.f, 1.f - fabsf(lv - f));
-  const float w_hi = fmaxf(0.f, 1.f - fabsf(lv - (f + 1.f)));
-  const int d_lo = (int)f, d_hi = d_lo + 1;
+  const Tent tn = tent_of(levels[i], p.D);
+  const float w_lo = tn.lo, w_hi = tn.hi;
+  const int d_lo = tn.f, d_hi = d_lo + 1;
   const int C = NC > 0 ? NC : p.C;
   const int G = NC > 0 ? (NC + 3) / 4 : p.G;
   const int64_t P = (int64_t)Ho * Wo;
@@ -437,29 +469,374 @@ __global__ void __launch_bounds__(kTileX* kTileY)
   dlevels[i] = gl;
 }
 
+// ---- K5a ----
+
+constexpr int kSpan = 3;  // the widest footprint: a coarse level's window
+constexpr int kRowKeys = kTileW + kSpan - 1;  // an item's local keys a row
+constexpr int kLocalKeys = kRowKeys * (kTileH + kSpan - 1);
+
+__device__ __forceinline__ bool reaches_nothing(const gg::Taps& t) {
+  return t.w[0] == 0.f && t.w[1] == 0.f && t.w[2] == 0.f && t.w[3] == 0.f;
+}
+
+// The top-left texel (ky, kx) of a point's footprint on level d: its
+// tap's on level 0, its 3x3 window's on a coarse level.
+__device__ __forceinline__ void footprint_origin(const Pyramid& p,
+                                                 const PointTaps& q, int d,
+                                                 int* ky, int* kx) {
+  if (d == 0) {
+    *ky = q.Y0;
+    *kx = q.X0;
+    return;
+  }
+  *ky = resize_axis(q.Y0, p.size[d], p.scale[d]).r0;
+  *kx = resize_axis(q.X0, p.size[d], p.scale[d]).r0;
+}
+
+// The weights a point puts on the kSpan x kSpan texels from its
+// footprint's top-left on level d, times its tent w there, into wq: on
+// level 0 its tap's corner weights, two corners that a clamp folds onto
+// one texel summed in corner order; on a coarse level K1's filter of the
+// window, the entries that the rebuild clamps onto the edge texel summed
+// there in window order.
+__device__ __forceinline__ void footprint_weights(const Pyramid& p,
+                                                  const PointTaps& q, int d,
+                                                  float w, float* wq) {
+#pragma unroll
+  for (int j = 0; j < kSpan * kSpan; ++j) wq[j] = 0.f;
+  if (d == 0) {
+    const bool cx = q.X1 != q.X0, cy = q.Y1 != q.Y0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wq[((k >> 1) && cy ? kSpan : 0) + ((k & 1) && cx ? 1 : 0)] += q.t.w[k];
+    }
+  } else {
+    const Rebuild r = level_rebuild(p, q, d);
+    float A[3][3];
+    tap_filter(r, q.t.w, A);
+    const int ry = p.size[d] - 1 - r.y0.r0, rx = p.size[d] - 1 - r.x0.r0;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) wq[min(a, ry) * kSpan + min(b, rx)] += A[a][b];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kSpan * kSpan; ++j) wq[j] *= w;
+}
+
+// K5a's bin keys: an entry on each level whose tent is not 0 at the
+// point's level, none for a point whose tap weights are all 0.
 template <int PAD>
-__global__ void mipmap_dstack_kernel(const float* __restrict__ grid,
-                                     const float* __restrict__ levels,
-                                     const float* __restrict__ dout,
-                                     float* __restrict__ dstack, int N, int D,
-                                     int C, int H, int W, int P) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)N * P) return;
-  const int64_t n = i / P;
-  const int64_t p = i - n * P;
-  const gg::Taps t = gg::make_taps<PAD>(grid[2 * i], grid[2 * i + 1], H, W);
-  const float lv = levels[i];
-  const float f = fminf(fmaxf(floorf(lv), 0.f), (float)(D - 2));
-  const float w_lo = fmaxf(0.f, 1.f - fabsf(lv - f));
-  const float w_hi = fmaxf(0.f, 1.f - fabsf(lv - (f + 1.f)));
-  const int64_t hw = (int64_t)H * W;
-  float* lo = dstack + (n * D + (int64_t)f) * C * hw;
-  float* hi = lo + C * hw;
-  const float* g = dout + n * C * P + p;
-  for (int c = 0; c < C; ++c) {
-    const float dd = g[(int64_t)c * P];
-    if (w_lo != 0.f) gg::scatter(lo + c * hw, t, dd * w_lo);
-    if (w_hi != 0.f) gg::scatter(hi + c * hw, t, dd * w_hi);
+struct DpyramidKeys {
+  static constexpr int kEntries = 2;
+  struct Point {
+    float2 g;
+    float lv;
+  };
+  Pyramid p;
+  Tiling tl;
+  const float2* grid;
+  const float* levels;
+  int P;
+
+  __device__ __forceinline__ Point load(int n, int i) const {
+    const int64_t at = (int64_t)n * P + i;
+    return Point{grid[at], levels[at]};
+  }
+  __device__ __forceinline__ void keys(const Point& pt, int (&key)[2]) const {
+    const PointTaps q = point_taps<PAD>(p, pt.g.x, pt.g.y);
+    if (reaches_nothing(q.t)) return;
+    const Tent tn = tent_of(pt.lv, p.D);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if ((e ? tn.hi : tn.lo) == 0.f) continue;
+      const int d = tn.f + e;
+      int ky, kx;
+      footprint_origin(p, q, d, &ky, &kx);
+      key[e] = tile_key(tl, d, ky, kx, d == 0 ? 2 : kSpan);
+    }
+  }
+};
+
+// A gather warp's shared memory: per candidate, in the order of its
+// sorted position, the weights it puts on the kSpan x kSpan texels from
+// its footprint's top-left, a float4 group of channels of dout and its
+// point; per local key its count, its run's start and a running position.
+struct PyrItemShared {
+  float wq[kSlots][kSpan * kSpan];
+  float4 g[kSlots];
+  int pt[kSlots];
+  unsigned short cnt[kLocalKeys];
+  unsigned short run[kLocalKeys + 1];
+  unsigned short pos[kLocalKeys];
+};
+constexpr size_t kPyrItemShared = (sizeof(PyrItemShared) + 15) & ~(size_t)15;
+
+// Tile t of the pyramid: its level, its first texel and the level's side.
+struct TileAt {
+  int d, y0, x0, side;
+};
+
+__device__ __forceinline__ TileAt tile_at(const Pyramid& p, const Tiling& tl,
+                                          int t) {
+  TileAt a;
+  a.d = level_of(tl, t);
+  const int lt = t - tl.base[a.d], tiles_x = tl.tiles_x[a.d];
+  a.x0 = (lt % tiles_x) * kTileW;
+  a.y0 = (lt / tiles_x) * kTileH;
+  a.side = p.size[a.d];
+  return a;
+}
+
+// The gradient's float4 group g0 of channels of texel (y, x) of level d of
+// image n: planes on level 0 (lanes past C: nothing), packed texels on a
+// coarse level.
+__device__ __forceinline__ float* group_at(const Pyramid& p, float* dlevel0,
+                                           float* dcoarse, int n, int d,
+                                           int y, int x, int g0) {
+  if (d == 0) {
+    return dlevel0 + (((int64_t)n * p.C + 4 * g0) * p.S + y) * p.S + x;
+  }
+  return dcoarse + n * p.coarse_stride + p.off[d] +
+         ((int64_t)(y * p.size[d] + x) * p.G + g0) * 4;
+}
+
+__device__ __forceinline__ void store_group(const Pyramid& p, float* at,
+                                            int d, int g0, float4 v) {
+  if (d > 0) {
+    *reinterpret_cast<float4*>(at) = v;
+    return;
+  }
+  const int64_t plane = (int64_t)p.S * p.S;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (4 * g0 + c < p.C) at[c * plane] = lane(v, c);
+  }
+}
+
+__device__ __forceinline__ float4 load_group(const Pyramid& p,
+                                             const float* at, int d, int g0) {
+  if (d > 0) return *reinterpret_cast<const float4*>(at);
+  const int64_t plane = (int64_t)p.S * p.S;
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = 4 * g0 + c < p.C ? at[c * plane] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Each warp walks the image's work items on its own: item i is tile t's
+// candidates [s * kSlots, (s + 1) * kSlots) of its list, s = i - first[t].
+template <int PAD>
+__global__ void __launch_bounds__(kGatherWarps * 32)
+    dpyramid_gather_kernel(Pyramid p, Tiling tl,
+                           const float* __restrict__ grid,
+                           const float* __restrict__ levels,
+                           const float* __restrict__ dout,
+                           const int* __restrict__ order,
+                           char* __restrict__ work,
+                           float* __restrict__ partial,
+                           float* __restrict__ dlevel0,
+                           float* __restrict__ dcoarse, int P, int extra) {
+  extern __shared__ float4 smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  PyrItemShared& sh = *reinterpret_cast<PyrItemShared*>(
+      reinterpret_cast<char*>(smem) + warp * kPyrItemShared);
+  const int n = blockIdx.y, nt = tl.base[tl.levels], C = p.C;
+  const Work wk = work_of(work, nt, extra, n);
+  const int n_items = wk.first[nt];
+  const float2* pts = reinterpret_cast<const float2*>(grid) + (int64_t)n * P;
+  const float* lvs = levels + (int64_t)n * P;
+  const int* ord = order + (int64_t)n * 2 * P;
+  const float* dn = dout + (int64_t)n * C * P;
+  for (int i = blockIdx.x * kGatherWarps + warp; i < n_items;
+       i += gridDim.x * kGatherWarps) {
+    const int t = wk.item_tile[i], s = i - wk.first[t];
+    const int4 start = wk.seg[2 * t], len = wk.seg[2 * t + 1];
+    const int v0 = s * kSlots;
+    const int m = min(len.x + len.y + len.z + len.w - v0, kSlots);
+    const TileAt at = tile_at(p, tl, t);
+    const int width = at.d == 0 ? 2 : kSpan;
+    if (m <= 0) {  // a tile that no footprint reaches: its one item
+#pragma unroll
+      for (int te = 0; te < kTileTexels / 32; ++te) {
+        const int e = te * 32 + lane;
+        const int y = at.y0 + e / kTileW, x = at.x0 + e % kTileW;
+        if (y >= at.side || x >= at.side) continue;
+        for (int g0 = 0; g0 < p.G; ++g0) {
+          store_group(p, group_at(p, dlevel0, dcoarse, n, at.d, y, x, g0),
+                      at.d, g0, make_float4(0.f, 0.f, 0.f, 0.f));
+        }
+      }
+      continue;
+    }
+
+    // The candidates' indices, then their coordinates and levels (all
+    // loads of a step issued together).
+    int pi[kSlotRounds];
+#pragma unroll
+    for (int r = 0; r < kSlotRounds; ++r) {
+      const int j = r * 32 + lane;
+      pi[r] = j < m ? candidate(ord, start, len, v0 + j) : -1;
+    }
+    float2 g[kSlotRounds];
+    float lv[kSlotRounds];
+#pragma unroll
+    for (int r = 0; r < kSlotRounds; ++r) {
+      g[r] = pi[r] >= 0 ? pts[pi[r]] : make_float2(0.f, 0.f);
+      lv[r] = pi[r] >= 0 ? lvs[pi[r]] : 0.f;
+    }
+    for (int k = lane; k < kLocalKeys; k += 32) sh.cnt[k] = 0;
+    __syncwarp();
+    // The local key of each candidate's footprint origin; each key's count.
+    int key[kSlotRounds];
+#pragma unroll
+    for (int r = 0; r < kSlotRounds; ++r) {
+      key[r] = -1;
+      if (pi[r] >= 0) {
+        const PointTaps q = point_taps<PAD>(p, g[r].x, g[r].y);
+        int ky, kx;
+        footprint_origin(p, q, at.d, &ky, &kx);
+        key[r] = (ky - at.y0 + kSpan - 1) * kRowKeys + kx - at.x0 + kSpan - 1;
+      }
+      const Group gr = group_of(key[r]);
+      if (key[r] >= 0 && gr.lead) {
+        sh.cnt[key[r]] += (unsigned short)__popc(gr.mask);
+      }
+      __syncwarp();
+    }
+    float dv[kSlotRounds][4];  // dout's first channels, loaded now
+#pragma unroll
+    for (int r = 0; r < kSlotRounds; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dv[r][c] = pi[r] >= 0 && c < C ? dn[(int64_t)c * P + pi[r]] : 0.f;
+      }
+    }
+    warp_scan<kLocalKeys>(sh.cnt, sh.run, lane);
+    for (int k = lane; k < kLocalKeys; k += 32) sh.pos[k] = sh.run[k];
+    __syncwarp();
+    // Each candidate at its sorted place: its weights on this level, dout
+    // and the point.
+#pragma unroll
+    for (int r = 0; r < kSlotRounds; ++r) {
+      const Group gr = group_of(key[r]);
+      if (key[r] >= 0) {
+        const int a = sh.pos[key[r]] + rank_in(gr);
+        const PointTaps q = point_taps<PAD>(p, g[r].x, g[r].y);
+        const Tent tn = tent_of(lv[r], p.D);
+        footprint_weights(p, q, at.d, at.d == tn.f ? tn.lo : tn.hi,
+                          sh.wq[a]);
+        sh.g[a] = make_float4(dv[r][0], dv[r][1], dv[r][2], dv[r][3]);
+        sh.pt[a] = pi[r];
+      }
+      __syncwarp();
+      if (key[r] >= 0 && gr.lead) {
+        sh.pos[key[r]] += (unsigned short)__popc(gr.mask);
+      }
+      __syncwarp();
+    }
+
+    // Texel (ly, lx) is reached from the origins (ly - dy, lx - dx),
+    // 0 <= dx, dy < width: for each dy, `width` adjacent local keys.
+    const int placed = sh.run[kLocalKeys];
+    for (int g0 = 0; g0 < p.G; ++g0) {
+      if (g0 > 0) {
+        for (int j = lane; j < placed; j += 32) {
+          float v[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            v[c] = 4 * g0 + c < C ? dn[(int64_t)(4 * g0 + c) * P + sh.pt[j]]
+                                  : 0.f;
+          }
+          sh.g[j] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int te = 0; te < kTileTexels / 32; ++te) {
+        const int e = te * 32 + lane;
+        const int ly = e / kTileW, lx = e % kTileW;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int dy = width - 1; dy >= 0; --dy) {
+          const int k = (ly - dy + kSpan - 1) * kRowKeys + lx - width + kSpan;
+          const int b1 = sh.run[k + 1], b2 = sh.run[k + 2];
+          const int end = sh.run[k + width];
+          for (int j = sh.run[k]; j < end; ++j) {
+            const int dx = width - 1 - (j >= b1) - (width == kSpan && j >= b2);
+            const float w = sh.wq[j][dy * kSpan + dx];
+            const float4 gv = sh.g[j];
+            acc.x += gv.x * w;
+            acc.y += gv.y * w;
+            acc.z += gv.z * w;
+            acc.w += gv.w * w;
+          }
+        }
+        const int y = at.y0 + ly, x = at.x0 + lx;
+        if (y < at.side && x < at.side) {
+          if (s == 0) {
+            store_group(p, group_at(p, dlevel0, dcoarse, n, at.d, y, x, g0),
+                        at.d, g0, acc);
+          } else {
+            const int64_t slot = (int64_t)n * extra + (i - t - 1);
+            float* ps = partial + (slot * p.G + g0) * 4 * kTileTexels + e;
+            ps[0] = acc.x;
+            ps[kTileTexels] = acc.y;
+            ps[2 * kTileTexels] = acc.z;
+            ps[3 * kTileTexels] = acc.w;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// A warp a tile: add a split tile's later items, in item order, to what
+// its first wrote; a float4 group of channels of two texels a lane at a
+// time.
+__global__ void __launch_bounds__(kGatherWarps * 32)
+    dpyramid_merge_kernel(Pyramid p, Tiling tl, char* __restrict__ work,
+                          const float* __restrict__ partial,
+                          float* __restrict__ dlevel0,
+                          float* __restrict__ dcoarse, int extra) {
+  constexpr int kPer = kTileTexels / 32;  // a lane's texels
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.y, nt = tl.base[tl.levels];
+  const int t = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
+  if (t >= nt) return;
+  const Work wk = work_of(work, nt, extra, n);
+  const int first = wk.first[t], splits = wk.first[t + 1] - first;
+  if (splits <= 1) return;
+  const int64_t slot0 = (int64_t)n * extra + first - t;  // item 1's slot
+  const TileAt at = tile_at(p, tl, t);
+  for (int g0 = 0; g0 < p.G; ++g0) {
+    float* to[kPer];
+    float4 a[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = k * 32 + lane;
+      const int y = at.y0 + e / kTileW, x = at.x0 + e % kTileW;
+      to[k] = y < at.side && x < at.side
+                  ? group_at(p, dlevel0, dcoarse, n, at.d, y, x, g0) : nullptr;
+      a[k] = to[k] ? load_group(p, to[k], at.d, g0)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int s = 1; s < splits; ++s) {
+      const float* ps =
+          partial + ((slot0 + s - 1) * p.G + g0) * 4 * kTileTexels + lane;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        a[k].x += ps[k * 32];
+        a[k].y += ps[kTileTexels + k * 32];
+        a[k].z += ps[2 * kTileTexels + k * 32];
+        a[k].w += ps[3 * kTileTexels + k * 32];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (to[k]) store_group(p, to[k], at.d, g0, a[k]);
+    }
   }
 }
 
@@ -549,6 +926,64 @@ int launch_dcoords(int padding, dim3 blocks, dim3 threads, cudaStream_t s,
   return (int)cudaGetLastError();
 }
 
+// K5a's geometry and the byte offsets of its scratch: the bucketed
+// entries (two a point), the work lists and the split tiles' partials.
+struct DpyramidPlan {
+  Tiling tl;
+  BinPlan bin;
+  size_t order, work, partial, bytes;
+};
+
+bool plan_dpyramid(DpyramidPlan* q, int N, int D, int C, int S, int P) {
+  if (N <= 0 || D < 2 || D > kMaxLevels || C < 1 || S < 1 ||
+      (S >> (D - 1)) < 1 || P <= 0) {
+    return false;
+  }
+  int sides[kMaxLevels];
+  for (int d = 0; d < D; ++d) sides[d] = S >> d;
+  q->tl = make_tiling(D, sides, sides);
+  if (!plan_bin(&q->bin, q->tl, 2, P)) return false;
+  const int G = (C + 3) / 4;
+  size_t at = 0;
+  q->order = at;
+  at = align16(at + sizeof(int) * (size_t)N * 2 * P);
+  q->work = at;
+  at = align16(at + q->bin.work * N);
+  q->partial = at;
+  at = align16(at + sizeof(float) * (size_t)N * q->bin.extra * G * 4 *
+                        kTileTexels);
+  q->bytes = at;
+  return true;
+}
+
+template <int PAD>
+int launch_dpyramid(const Pyramid& p, const DpyramidPlan& q,
+                    const float* grid, const float* levels, const float* dout,
+                    float* dlevel0, float* dcoarse, char* scratch, int N,
+                    int P, cudaStream_t s) {
+  int* order = reinterpret_cast<int*>(scratch + q.order);
+  char* work = scratch + q.work;
+  float* partial = reinterpret_cast<float*>(scratch + q.partial);
+  const DpyramidKeys<PAD> keys{p, q.tl, reinterpret_cast<const float2*>(grid),
+                               levels, P};
+  const int rc = launch_bin(keys, q.tl, q.bin, N, order, work, P, s);
+  if (rc != 0) return rc;
+  const size_t shared = kGatherWarps * kPyrItemShared;
+  const cudaError_t err = cudaFuncSetAttribute(
+      dpyramid_gather_kernel<PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+  if (err != cudaSuccess) return (int)err;
+  // a warp for each tile's first item; later items go to the warps of
+  // lower tiles in turn
+  const dim3 blocks((q.bin.nt + kGatherWarps - 1) / kGatherWarps, N);
+  dpyramid_gather_kernel<PAD><<<blocks, kGatherWarps * 32, shared, s>>>(
+      p, q.tl, grid, levels, dout, order, work, partial, dlevel0, dcoarse, P,
+      q.bin.extra);
+  dpyramid_merge_kernel<<<blocks, kGatherWarps * 32, 0, s>>>(
+      p, q.tl, work, partial, dlevel0, dcoarse, q.bin.extra);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K1. level0 (N, C, S, S): the input reflect-padded to S; coarse: per
@@ -604,23 +1039,47 @@ extern "C" int gg_mipmap_pyramid_dcoords(const float* level0,
                                     levels, dout, dgrid, dlevels, Ho, Wo);
 }
 
-// K5a. grid (N, P, 2), levels (N, P), dout (N, C, P), dstack
-// (N, D, C, H, W) zero-filled by the caller; all f32 and contiguous,
-// D >= 2. Returns the CUDA error code of the launch.
-extern "C" int gg_mipmap_sample_dstack(const float* grid, const float* levels,
-                                       const float* dout, float* dstack,
-                                       int N, int D, int C, int H, int W,
-                                       int P, int padding, int device,
-                                       void* stream) {
+// K5a's scratch in bytes for these shapes, or -1 for shapes it does not
+// take.
+extern "C" long long gg_mipmap_dpyramid_scratch(int N, int D, int C, int S,
+                                                int P) {
+  DpyramidPlan q;
+  return plan_dpyramid(&q, N, D, C, S, P) ? (long long)q.bytes : -1;
+}
+
+// K5a. grid (N, P, 2), levels (N, P), dout (N, C, P) over the cropped
+// (H, W) at offset lp of a pyramid of D levels of side S >> d; dlevel0
+// (N, C, S, S) and dcoarse (per image the coarse levels, packed as K1
+// reads them, 16-byte aligned), both written whole; scratch of
+// gg_mipmap_dpyramid_scratch bytes, 16-byte aligned; all f32 and
+// contiguous. Three launches; returns the CUDA error code.
+extern "C" int gg_mipmap_dpyramid(const float* grid, const float* levels,
+                                  const float* dout, float* dlevel0,
+                                  float* dcoarse, void* scratch, int N, int D,
+                                  int C, int S, int H, int W, int lp, int P,
+                                  int padding, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (D < 2) return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)N * P;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  if (N == 0) return (int)cudaSuccess;
+  Pyramid p;
+  DpyramidPlan q;
+  if (!make_pyramid(&p, dlevel0, dcoarse, D, C, S, H, W, lp) || N > 65535 ||
+      !plan_dpyramid(&q, N, D, C, S, P)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  char* sc = static_cast<char*>(scratch);
   cudaStream_t s = (cudaStream_t)stream;
-  GG_LAUNCH_BY_PADDING(mipmap_dstack_kernel, blocks, threads, s, grid, levels,
-                       dout, dstack, N, D, C, H, W, P);
-  return (int)cudaGetLastError();
+  switch (padding) {
+    case gg::kBorder:
+      return launch_dpyramid<gg::kBorder>(p, q, grid, levels, dout, dlevel0,
+                                          dcoarse, sc, N, P, s);
+    case gg::kReflection:
+      return launch_dpyramid<gg::kReflection>(p, q, grid, levels, dout,
+                                              dlevel0, dcoarse, sc, N, P, s);
+    case gg::kZeros:
+      return launch_dpyramid<gg::kZeros>(p, q, grid, levels, dout, dlevel0,
+                                         dcoarse, sc, N, P, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -9,8 +9,8 @@ csrc/mipmap_sample.cu, which rebuild each full-resolution tap from the
 native levels: the forward (K1) replaces
 gangealing_tpu/ops/pallas_mipmap.py::_fwd_kernel, its backward the
 ``_dcoords_kernel`` (K3, d/dgrid and d/dlevels) and ``_dimg_kernel`` (K5a,
-d/dstack, mapped to d/dpyramid). ``_sample_pyramid`` is their plain
-version. Autograd chains d/dlevels through ``mipmap_levels`` and
+d/dpyramid, a deterministic binned gather). ``_sample_pyramid`` is their
+plain version. Autograd chains d/dlevels through ``mipmap_levels`` and
 d/dpyramid through the blur chain, as the JAX package chains its kernels
 through ``_band_tent_coords``.
 
@@ -206,22 +206,10 @@ def _sample_pyramid(pyramid, grid, levels, padding_mode):
     return _sample_stack(_rebuild_stack(pyramid), grid, levels, padding_mode)
 
 
-def _pyramid_grad(pyramid, dstack):
-    """d/dlevel0 and d/dcoarse from d/dstack: the adjoint of
-    ``_rebuild_stack`` (the crop and each level's ``interpolate_bilinear``),
-    as torch ops."""
-    with torch.enable_grad():
-        level0 = pyramid.level0.detach().requires_grad_()
-        coarse = pyramid.coarse.detach().requires_grad_()
-        stack = _rebuild_stack(Pyramid(level0, coarse, pyramid.shape))
-        return torch.autograd.grad(stack, (level0, coarse), dstack)
-
-
 class MipmapSample(torch.autograd.Function):
     """Sample a pyramid at per-point levels on the card: K1 forward; the
-    backward launches K3 for d/dgrid and d/dlevels, and K5a for d/dstack,
-    mapped to d/dlevel0 and d/dcoarse by ``_pyramid_grad``, each only when
-    its inputs need a gradient."""
+    backward launches K3 for d/dgrid and d/dlevels and K5a for d/dlevel0
+    and d/dcoarse, each only when its inputs need a gradient."""
 
     @staticmethod
     def forward(ctx, level0, coarse, shape, grid, levels, padding_mode):
@@ -242,13 +230,28 @@ class MipmapSample(torch.autograd.Function):
             dgrid, dlevels = mipmap_sample_dcoords(pyramid, grid, levels,
                                                    dout, ctx.padding_mode)
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            shape = ctx.shape
-            stack_shape = (level0.shape[0], shape.num_levels, shape.channels,
-                           shape.height, shape.width)
-            dstack = mipmap_sample_dstack(grid, levels, dout, stack_shape,
-                                          ctx.padding_mode)
-            dlevel0, dcoarse = _pyramid_grad(pyramid, dstack)
+            dlevel0, dcoarse = mipmap_sample_dpyramid(
+                ctx.shape, grid, levels, dout, ctx.padding_mode)
         return dlevel0, dcoarse, None, dgrid, dlevels, None
+
+
+def _coarse_floats(shape):
+    """Floats of one image's coarse levels in the ``Pyramid`` packing."""
+    return sum(shape.texel() * s * s for s in shape.sides()[1:])
+
+
+def _check_points(shape, grid, levels, N, device):
+    """Raise unless grid (N, Ho, Wo, 2) and levels (N, Ho, Wo) are what the
+    kernels take for a pyramid of ``shape``; return (Ho, Wo)."""
+    _build.check_operand("grid", grid, 4, device)
+    _build.check_operand("levels", levels, 3, device)
+    Ho, Wo = _check_grid(grid, N)
+    if tuple(levels.shape) != (N, Ho, Wo):
+        raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
+    if shape.num_levels < 2:
+        raise ValueError(f"the pyramid needs at least 2 levels, got "
+                         f"{shape.num_levels}")
+    return Ho, Wo
 
 
 def _check_pyramid_operands(pyramid, grid, levels):
@@ -256,17 +259,10 @@ def _check_pyramid_operands(pyramid, grid, levels):
     device = level0.device
     _build.check_operand("level0", level0, 4, device)
     _build.check_operand("coarse", coarse, 2, device)
-    _build.check_operand("grid", grid, 4, device)
-    _build.check_operand("levels", levels, 3, device)
     N = level0.shape[0]
-    Ho, Wo = _check_grid(grid, N)
-    if tuple(levels.shape) != (N, Ho, Wo):
-        raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
-    if shape.num_levels < 2:
-        raise ValueError(f"the pyramid needs at least 2 levels, got "
-                         f"{shape.num_levels}")
+    Ho, Wo = _check_points(shape, grid, levels, N, device)
     S, C = shape.size, shape.channels
-    per_image = sum(shape.texel() * s * s for s in shape.sides()[1:])
+    per_image = _coarse_floats(shape)
     if tuple(level0.shape) != (N, C, S, S) or \
             tuple(coarse.shape) != (N, per_image):
         raise ValueError(f"a pyramid of {shape} for {N} images has level 0 "
@@ -327,30 +323,39 @@ def mipmap_sample_dcoords(pyramid, grid, levels, dout, padding_mode="border"):
     return dgrid, dlevels
 
 
-def mipmap_sample_dstack(grid, levels, dout, stack_shape,
-                         padding_mode="border"):
-    """K5a: the gradient of a mipmap sample with respect to the
-    full-resolution stack of ``stack_shape`` (N, D, C, H, W), given ``dout``
-    on the card. A scatter with atomicAdd: the order of the sums, and so
-    the last bits, change from run to run."""
+def mipmap_sample_dpyramid(shape, grid, levels, dout, padding_mode="border"):
+    """K5a: the gradient of ``mipmap_sample`` with respect to a pyramid of
+    ``shape`` (``PyramidShape``), given ``dout`` (N, C, Ho, Wo) on the card:
+    d/dlevel0 (N, C, S, S), in the padded frame, and d/dcoarse (N, L) in the
+    ``Pyramid`` packing, its padding channels 0. A binned gather with no
+    atomics: the same bits from run to run. Three kernels, one count in
+    ``LAUNCHES``; the gradients and the scratch come from ``torch.empty``."""
     device = grid.device
-    N, D, C, H, W = stack_shape
-    if D < 2:
-        raise ValueError(f"the stack needs at least 2 levels, got {D}")
-    _build.check_operand("grid", grid, 4, device)
-    _build.check_operand("levels", levels, 3, device)
-    Ho, Wo = _check_grid(grid, N)
-    if tuple(levels.shape) != (N, Ho, Wo):
-        raise ValueError(f"levels must be {(N, Ho, Wo)}, got {tuple(levels.shape)}")
+    N = grid.shape[0]
+    Ho, Wo = _check_points(shape, grid, levels, N, device)
+    D, C, S = shape.num_levels, shape.channels, shape.size
     _check_dout(dout, N, C, Ho, Wo, device)
-    dstack = torch.zeros((N, D, C, H, W), device=device, dtype=torch.float32)
     code = _build.padding_code(padding_mode)
+    if Ho * Wo == 0:
+        return (torch.zeros((N, C, S, S), device=device),
+                torch.zeros((N, _coarse_floats(shape)), device=device))
+    if grid.data_ptr() % 8:  # K5a reads a point as one float2
+        grid = grid.clone()
     lib = _build.load_kernels()
-    _build.launch("mipmap_sample_dstack", lib.gg_mipmap_sample_dstack,
+    nbytes = lib.gg_mipmap_dpyramid_scratch(N, D, C, S, Ho * Wo)
+    if nbytes < 0:
+        raise ValueError(f"K5a does not take a pyramid of {shape} sampled "
+                         f"at {N} x {Ho} x {Wo} points")
+    dlevel0 = torch.empty((N, C, S, S), device=device, dtype=torch.float32)
+    dcoarse = torch.empty((N, _coarse_floats(shape)), device=device,
+                          dtype=torch.float32)
+    scratch = torch.empty(max(nbytes, 1), device=device, dtype=torch.uint8)
+    _build.launch("mipmap_sample_dpyramid", lib.gg_mipmap_dpyramid,
                   grid.data_ptr(), levels.data_ptr(), dout.data_ptr(),
-                  dstack.data_ptr(), N, D, C, H, W, Ho * Wo, code,
-                  device.index, _build.stream_of(device))
-    return dstack
+                  dlevel0.data_ptr(), dcoarse.data_ptr(), scratch.data_ptr(),
+                  N, D, C, S, shape.height, shape.width, shape.lp, Ho * Wo,
+                  code, device.index, _build.stream_of(device))
+    return dlevel0, dcoarse
 
 
 def mipmap_warp(inputs, grid, max_num_levels=3.5, padding_mode="border"):

@@ -8,9 +8,10 @@ interpret mode as the JAX package's own tests run them (atol 1e-5, f32).
 On the card (marker ``cuda``, skipped without one): each forward kernel
 against its plain version on the same CUDA tensors (atol 1e-5), each
 backward kernel against the plain version's autograd (atol 1e-5 scaled by
-max(1, max|ref|): K5a scatters with atomics, whose order of the sums
-changes from run to run; K5b gathers each texel's sum in a fixed order,
-the same from run to run but not the CPU's), and the launch counts:
+max(1, max|ref|): K5a and K5b gather each texel's sum in a fixed order,
+the same from run to run but not the CPU's), three launches of K5a equal
+to the bit, K5a and K5b on images of 256 and 512 px, and the launch
+counts:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
@@ -125,6 +126,10 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         tgs.grid_sample_cuda(x, g)
     with pytest.raises(ValueError, match="must be on"):
         tmm.mipmap_sample(tmm._build_pyramid(x, 4), g, g[..., 0].contiguous())
+    with pytest.raises(ValueError, match="must be on"):
+        tmm.mipmap_sample_dpyramid(tmm._build_pyramid(x, 4).shape, g,
+                                   g[..., 0].contiguous(),
+                                   torch.zeros(2, 3, 16, 16))
     assert LAUNCHES == before
 
 
@@ -263,8 +268,8 @@ def test_grid_sample_backward_kernels_match_plain(cuda, padding_mode, kind):
 @pytest.mark.parametrize("kind", ["identity", "affine"])
 @pytest.mark.parametrize("padding_mode", PADDINGS)
 def test_mipmap_backward_kernels_match_plain(cuda, padding_mode, kind):
-    """K3 (d/dgrid, d/dlevels) and K5a (d/dstack, mapped to the pyramid's
-    level 0 and coarse levels) against the plain autograd of
+    """K3 (d/dgrid, d/dlevels) and K5a (d/dlevel0, d/dcoarse) against the
+    plain autograd of
     _sample_pyramid, at the warp's levels, at integer ones and one float
     step below them (where |level - (f + 2)| rounds to the tent's kink),
     with 5 channels and with 3 (the kernels' unrolled form)."""
@@ -287,8 +292,8 @@ def test_mipmap_backward_kernels_match_plain(cuda, padding_mode, kind):
         torch.cuda.synchronize()
         assert (LAUNCHES["mipmap_sample_dcoords"]
                 == before["mipmap_sample_dcoords"] + 1)
-        assert (LAUNCHES["mipmap_sample_dstack"]
-                == before["mipmap_sample_dstack"] + 1)
+        assert (LAUNCHES["mipmap_sample_dpyramid"]
+                == before["mipmap_sample_dpyramid"] + 1)
         for o, r in zip(ours, ref):
             assert _scaled_err(o, r) <= 1e-5
         three = tmm._build_pyramid(x[:, :3].contiguous(), 4)
@@ -314,7 +319,8 @@ def test_backward_launches_only_what_is_needed(cuda):
     torch.cuda.synchronize()
     assert LAUNCHES["mipmap_sample_dcoords"] == before["mipmap_sample_dcoords"] + 1
     assert LAUNCHES["grid_sample_dgrid"] == before["grid_sample_dgrid"] + 1
-    assert LAUNCHES["mipmap_sample_dstack"] == before["mipmap_sample_dstack"]
+    assert (LAUNCHES["mipmap_sample_dpyramid"]
+            == before["mipmap_sample_dpyramid"])
     assert LAUNCHES["grid_sample_dimg"] == before["grid_sample_dimg"]
     assert float(g.grad.abs().sum()) > 0
 
@@ -322,9 +328,8 @@ def test_backward_launches_only_what_is_needed(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("padding_mode", PADDINGS)
 def test_mipmap_warp_image_grad_matches_fold(cuda, padding_mode):
-    """d/dimage of the whole warp on the card (K5a, the rebuild's adjoint
-    and the blur chain) against the fold path's autograd, at a size the
-    pyramid reflect-pads."""
+    """d/dimage of the whole warp on the card (K5a and the blur chain)
+    against the fold path's autograd, at a size the pyramid reflect-pads."""
     x, g, cot = _grad_inputs(8, cuda, 2, 3, 48, 24, "affine")
     x.requires_grad_()
     ours = torch.autograd.grad(tmm.mipmap_warp(x, g, padding_mode=padding_mode),
@@ -332,4 +337,117 @@ def test_mipmap_warp_image_grad_matches_fold(cuda, padding_mode):
     levels = tmm.jmax(tmm.mipmap_levels(g, 48, 48, 3.5), 0.0)
     ref = torch.autograd.grad(
         tmm._mipmap_warp_fold(x, g, 4, levels, padding_mode), x, cot)[0]
+    assert _scaled_err(ours, ref) <= 1e-5
+
+
+def _k5a_case(cuda, kind, N, C, size, out, seed):
+    """A pyramid's shape, a grid of ``kind`` (identity, affine, or the
+    skewed zoom-in and border pile of chip_smoke.SKEWED: scale 0.25 and 2)
+    at ``out`` x ``out`` points, its warp levels and a cotangent."""
+    if kind == "affine":
+        _, grid = _inputs(seed, N=N, C=C, H=size, out=out)
+        grid = torch.from_numpy(grid)
+    elif kind == "identity":
+        grid = tgs.identity_grid(N, out, out)
+    else:
+        th = torch.zeros(N, 2, 3)
+        th[:, 0, 0] = th[:, 1, 1] = {"zoom": 0.25, "pile": 2.0}[kind]
+        th[:, :, 2] = torch.from_numpy(
+            np.random.RandomState(seed).uniform(-0.1, 0.1, (N, 2)))
+        grid = tgs.affine_grid(th, (N, 1, out, out))
+    grid = grid.contiguous().to(cuda)
+    levels = tmm.jmax(tmm.mipmap_levels(grid, size, size, 3.5), 0.0)
+    shape = tmm._build_pyramid(torch.zeros(1, C, size, size), 4).shape
+    cot = torch.randn(N, C, out, out, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(seed))
+    return shape, grid, levels.contiguous(), cot
+
+
+def _k5a_plain(shape, grid, levels, cot, padding_mode):
+    N, dev = grid.shape[0], grid.device
+    level0 = torch.zeros(N, shape.channels, shape.size, shape.size,
+                         device=dev, requires_grad=True)
+    coarse = torch.zeros(N, tmm._coarse_floats(shape), device=dev,
+                         requires_grad=True)
+    out = tmm._sample_pyramid(tmm.Pyramid(level0, coarse, shape), grid,
+                              levels, padding_mode)
+    return torch.autograd.grad(out, (level0, coarse), cot)
+
+
+def _padding_lanes(shape, dcoarse):
+    """d/dcoarse's padding channels, level by level."""
+    t, C = shape.texel(), shape.channels
+    parts = dcoarse.split([t * s * s for s in shape.sides()[1:]], dim=1)
+    return torch.cat([p.reshape(p.shape[0], -1, t)[..., C:].reshape(-1)
+                      for p in parts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["identity", "zoom", "pile"])
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_k5a_matches_plain_and_repeats_its_bits(cuda, padding_mode, kind):
+    """K5a on the identity and the skewed grids, from a 48 px image (the
+    pyramid reflect-pads it to 64): within 1e-5 scaled of the plain
+    autograd, three launches equal to the bit, one count a call, every
+    texel that no point reaches and every padding channel exactly 0
+    although the memory held NaN. The zoom-in puts each image's 4,096
+    points into a twelfth of the image, so its tiles are split over many
+    work items."""
+    shape, grid, levels, cot = _k5a_case(cuda, kind, 2, 3, 48, 64, 9)
+    ref = _k5a_plain(shape, grid, levels, cot, padding_mode)
+    runs = []
+    for _ in range(3):
+        torch.full((4, 1 << 20), float("nan"), device=cuda)  # freed at once
+        before = LAUNCHES["mipmap_sample_dpyramid"]
+        runs.append(tmm.mipmap_sample_dpyramid(shape, grid, levels, cot,
+                                               padding_mode))
+        torch.cuda.synchronize()
+        assert LAUNCHES["mipmap_sample_dpyramid"] == before + 1
+    # the texels some point reaches: all weights are >= 0
+    reach = _k5a_plain(shape, grid, levels, torch.ones_like(cot),
+                       padding_mode)
+    for o, r, hit in zip(runs[0], ref, reach):
+        assert _scaled_err(o, r) <= 1e-5
+        assert bool(torch.isfinite(o).all())
+        assert bool((o[hit == 0] == 0).all())
+    assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(runs[0], r))
+    assert bool((_padding_lanes(shape, runs[0][1]) == 0).all())
+    if kind == "zoom":
+        assert int((reach[0] == 0).sum()) > reach[0].numel() // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [3, 5])
+@pytest.mark.parametrize("padding_mode", PADDINGS)
+def test_k5a_channel_counts(cuda, padding_mode, C):
+    """K5a at 3 channels (one float4 group) and 5 (two, the second mostly
+    padding) on the affine grid, within 1e-5 scaled of the plain autograd,
+    its padding channels 0."""
+    shape, grid, levels, cot = _k5a_case(cuda, "affine", 3, C, 64, 40, 10)
+    ours = tmm.mipmap_sample_dpyramid(shape, grid, levels, cot, padding_mode)
+    for o, r in zip(ours, _k5a_plain(shape, grid, levels, cot,
+                                     padding_mode)):
+        assert _scaled_err(o, r) <= 1e-5
+    assert bool((_padding_lanes(shape, ours[1]) == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [256, 512])
+@pytest.mark.parametrize("kind", ["affine", "zoom"])
+def test_k5a_and_k5b_take_large_images(cuda, kind, size):
+    """K5a on a pyramid of a 256 and a 512 px image (1,360 and 5,440 tiles
+    of 16 x 4 texels: more keys than one bin pass counts at 512) and K5b on
+    the image itself (4,096 tiles at 512 px, which its bin refused before
+    it counted in passes), each within 1e-5 scaled of the plain autograd,
+    K5a twice equal to the bit."""
+    shape, grid, levels, cot = _k5a_case(cuda, kind, 2, 3, size, 128, 11)
+    ref = _k5a_plain(shape, grid, levels, cot, "border")
+    runs = [tmm.mipmap_sample_dpyramid(shape, grid, levels, cot, "border")
+            for _ in range(2)]
+    for o, r in zip(runs[0], ref):
+        assert _scaled_err(o, r) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    x = torch.zeros(2, 3, size, size, device=cuda, requires_grad=True)
+    ref = torch.autograd.grad(tgs.grid_sample(x, grid), x, cot)[0]
+    ours = tgs.grid_sample_dimg(grid, cot, tuple(x.shape))
     assert _scaled_err(ours, ref) <= 1e-5
