@@ -1,7 +1,9 @@
 """Smoke run of gangealing_torch on one CUDA card: build the kernels, hold
 them against their plain PyTorch versions, serve the flagship ComposedSTN
 congeal forward through them, train the flagship GANgealing configuration
-through them, and run the AR object-lens app through them.
+through them, and run the AR object-lens app and the eval apps (PCK-Transfer,
+flow scores, congeal_dataset and their CLIs, on LMDB datasets) through
+them.
 
     python3 chip_smoke.py
 
@@ -85,7 +87,30 @@ Phases:
      formulation; the pair on a dense 256^2 label over 8 images of 1024 px,
      held and timed (no gate); and the device time of a batch by kernel
      group with the idle share;
-  6. rates, and each kernel's device time (torch.profiler; K6's by CUDA
+  6. the eval path with the flagship STN loaded through load_stn: 400
+     smooth 256 px images written as PNGs into an LMDB by the port's
+     write_lmdb (read back by its native reader, which must be the one that
+     ran) with SPair-shaped sidecars (200 fixed pairs, 15 key points with
+     visibility, thresholds, inverse transforms, a left-right
+     permutation); PCK-Transfer at the shape of the JAX package's
+     bench.py::bench_pck (iters 3, the 4-way flip match, both ways, alphas
+     0.1, 0.05 and 0.01) at the eval batch of 50: a warm-up batch, pairs/s
+     by host clock over the 200 pairs with the decode, the peak memory,
+     two batches' device time by kernel group with the idle share, one
+     batch with its 20 K1 and 2 K2 launches held against the plain
+     versions; flow scores over the 400 images (imgs/s, peak, idle share)
+     and filter_dataset at 0.5; congeal_dataset over 64 images at the
+     CLI's defaults (imgs/s, accepted count); cli.pck (with
+     --vis_transfer), cli.flow_scores, cli.congeal_dataset,
+     cli.prepare_data and cli.propagate_to_images (with --flow_scores, its
+     K6 launch held against the plain pair) once each on small inputs;
+     then the card against the port's CPU path on 2 pairs and 4 images:
+     equal match picks, transferred points within 0.05 px (an inversion
+     pick may differ only at a near tie of the CPU path's distances, which
+     is counted), equal PCK counts, flow scores within 1e-4 relative,
+     equal congeal_dataset decisions, aligned images within 5e-4 with
+     the card's native convolutions (cuDNN's reading printed beside it);
+  7. rates, and each kernel's device time (torch.profiler; K6's by CUDA
      events around back-to-back calls, as a profile of it now and then
      misses launches) beside its plain version's, its bound on the card (the bytes of an image that
      these grids must read counted as the distinct texels their taps reach;
@@ -98,7 +123,8 @@ Phases:
      those of an AR batch, K5a's and K5b's those of the train phase's
      check (three kernels a call each), and the
      N=8 ones a toy-size line apart; the kernels line, whose
-     "launches" are the main path's (serve, cli.train and the AR apps) and
+     "launches" are the main path's (serve, cli.train, the AR apps and the
+     eval apps) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -125,11 +151,23 @@ import torch
 import torch.nn.functional as F
 
 from gangealing_torch import LAUNCHES, _build
+from gangealing_torch.apps import congeal_dataset as congeal_app
+from gangealing_torch.apps import flow_scores as flow_app
+from gangealing_torch.apps import pck as pck_app
 from gangealing_torch.apps.common import determine_flips, load_stn
 from gangealing_torch.apps.mixed_reality import run_gangealing_on_video
 from gangealing_torch.apps.propagate_to_images import propagate_to_images
+from gangealing_torch.cli import congeal_dataset as congeal_dataset_cli
+from gangealing_torch.cli import flow_scores as flow_scores_cli
 from gangealing_torch.cli import mixed_reality as mixed_reality_cli
+from gangealing_torch.cli import pck as pck_cli
+from gangealing_torch.cli import prepare_data as prepare_data_cli
+from gangealing_torch.cli import propagate_to_images as propagate_cli
 from gangealing_torch.cli import train as train_cli
+from gangealing_torch.data.dataset import (
+    DataLoader, MultiResolutionDataset, PCKDataset)
+from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
+from gangealing_torch.data.prepare import SPAIR_PERMUTATIONS
 from gangealing_torch.models.latent_learner import LatentLearner
 from gangealing_torch.models.lpips import make_perceptual_loss
 from gangealing_torch.models import stn as stn_ops
@@ -235,7 +273,8 @@ SKEWED = {"zoom-in": 0.25, "border pile": 2.0}
 
 # The kernels the main path launches: K1 and K2 in serve (K2 in its
 # antialias=False forward), K1 and K3 in every train step, K1, K2 and K6 in
-# every batch of the AR app.
+# every batch of the AR app, K1 and K2 in every PCK batch and K6 in
+# cli.propagate_to_images.
 MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords",
                      "splat")
 
@@ -2044,6 +2083,424 @@ def ar(dev, card):
             k2_ar[:5])
 
 
+# The eval phase: PCK-Transfer at the shape of the JAX package's
+# bench.py::bench_pck (the similarity STN iterated 3 times, the 4-way flip
+# match, both ways, three alphas) at the eval CLI's batch of 50 over 200
+# pairs of 400 smooth 256 px images (SPair-shaped sidecars: 15 key points
+# with visibility, per-image thresholds, a left-right permutation); flow
+# scores over the 400 images; congeal_dataset over 64 of them.
+EVAL_IMAGES = 400
+EVAL_BATCH = 50
+EVAL_KPS = 15
+PCK_ITERS = 3
+PCK_ALPHAS = (0.1, 0.05, 0.01)
+CONGEAL_IMAGES = 64
+# Card against the port's CPU path: transferred points within 0.05 px
+# (AR_PT_TOL), flow scores within 1e-4 relative, aligned images within
+# OUT_TOL; an inversion pick may differ only where the CPU path's own
+# distances at the two texels differ by under 1e-5 relative.
+SCORE_RTOL, TIE_REL = 1e-4, 1e-5
+
+
+def png_bytes(img):
+    """A (3, H, W) image in [-1, 1] as PNG bytes."""
+    import io
+    from PIL import Image
+    arr = np.round((img + 1) * 127.5).clip(0, 255).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr.transpose(1, 2, 0)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def image_lmdb(path, imgs):
+    """The images as an LMDB of PNGs, as the port's prepare_data writes
+    one, through the port's own writer; encoded on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        encoded = list(pool.map(png_bytes, imgs))
+    items = {f"256-{str(i).zfill(5)}".encode(): b
+             for i, b in enumerate(encoded)}
+    items[b"length"] = str(len(imgs)).encode()
+    write_lmdb(path, items)
+    return path
+
+
+def spair_sidecars(path, n, rng):
+    """SPair-shaped sidecars for n images in n / 2 fixed pairs (2i, 2i+1):
+    15 key points with visibility, a bounding-box threshold and an inverse
+    transform an image, the cat category's left-right permutation. The
+    even pairs are one image twice with the same key points."""
+    kps = np.concatenate([rng.rand(n, EVAL_KPS, 2) * 255,
+                          rng.rand(n, EVAL_KPS, 1) > 0.2], 2)
+    kps[1::4] = kps[0::4]
+    torch.save(torch.from_numpy(kps.astype(np.float32)),
+               os.path.join(path, "keypoints.pt"))
+    torch.save(torch.arange(n).view(n // 2, 2), os.path.join(path, "pairs.pt"))
+    torch.save(torch.from_numpy(rng.uniform(100, 250, n).astype(np.float32)),
+               os.path.join(path, "pck_thresholds.pt"))
+    inverse = np.stack([rng.randint(0, 30, n), rng.randint(0, 30, n),
+                        rng.uniform(0.8, 1.2, n)], 1).astype(np.float32)
+    torch.save(torch.from_numpy(inverse),
+               os.path.join(path, "inverse_coordinates.pt"))
+    torch.save(SPAIR_PERMUTATIONS["cat"], os.path.join(path, "permutation.pt"))
+
+
+def eval_images(n, seed):
+    """n smooth 256 px images whose pairs (4i, 4i+1) are one image twice."""
+    imgs = smooth_images(n, torch.Generator().manual_seed(seed)).numpy()
+    imgs[1::4] = imgs[0::4]
+    return imgs
+
+
+def run_pck(model, dset, num_pairs):
+    return pck_app.pck_transfer(
+        model, DataLoader(dset, batch_size=EVAL_BATCH, shuffle=False,
+                          drop_last=False),
+        alphas=PCK_ALPHAS, num_pairs=num_pairs, iters=PCK_ITERS,
+        transfer_both_ways=True, permutation=dset.mirror_permutation)
+
+
+def check_pck(pck):
+    check(pck.shape == (len(PCK_ALPHAS),) and bool(np.isfinite(pck).all())
+          and bool(((pck >= 0) & (pck <= 1)).all())
+          and pck[0] >= pck[1] >= pck[2], f"PCK values {pck}")
+
+
+def eval_groups():
+    return (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
+            ("K2 grid_sample", ("grid_sample_kernel",)),
+            ("nearest-texel argmin", ("argmin",)),
+            ("depthwise FIR convs", ("conv_depthwise2d",)),
+            CONV_GROUP,
+            ("host-device copies", ("memcpy",)),
+            ("pads", ("pad",)),
+            ("gather and index", ("gather", "index")))
+
+
+def nn_inputs(model, imgs, points, iters):
+    """The grid and the normalized points the flow stage of
+    composed_congeal_points inverts, and its picks."""
+    with torch.inference_mode():
+        out0, warp, cong0 = stn_ops.stn_congeal_points(
+            model.stns[0], imgs, points, unnormalize_output_points=True,
+            output_resolution=model.cfg.flow_size, iters=iters,
+            input_img_for_sampling=imgs, return_full=True)
+        _, fom, picks = stn_ops.stn_congeal_points(
+            model.stns[1], out0, cong0, base_warp=warp,
+            input_img_for_sampling=imgs, return_full=True)
+        ident = stn_ops.identity_grid(1, fom.shape[1], fom.shape[2],
+                                      dtype=fom.dtype, device=fom.device)
+        pts = normalize_points(cong0, imgs.shape[-1], imgs.shape[-1])
+    return fom + ident, pts, picks
+
+
+def near_tie_picks(grid, points, ours, ref):
+    """Where the card's inversion picked another texel than the CPU
+    path's: check that the CPU path's own distances at the two texels
+    differ by under TIE_REL relative; returns the mask of those points."""
+    differ = (ours != ref).any(-1)
+    N, H, W, _ = grid.shape
+    g = grid.reshape(N, H * W, 2)
+    for n, p in zip(*torch.nonzero(differ, as_tuple=True)):
+        pt = points[n, p]
+
+        def dist(xy):
+            gv = g[n, int(xy[1]) * W + int(xy[0])]
+            return float((pt @ pt + gv @ gv) - 2 * (gv @ pt))
+        d_ours, d_ref = dist(ours[n, p]), dist(ref[n, p])
+        check(abs(d_ours - d_ref) <= TIE_REL * max(abs(d_ours), abs(d_ref),
+                                                   1e-30),
+              f"the card's inversion picked {ours[n, p].tolist()} against "
+              f"{ref[n, p].tolist()}, distances {d_ours} and {d_ref}")
+    return differ
+
+
+def eval_card_vs_cpu(model, cpu_model, dset, imgs, out, card_name):
+    """2 pairs, 4 images: the 4-way match, the transferred points, the PCK
+    counts, the flow scores and congeal_dataset's decisions, on the card
+    and on the port's CPU path."""
+    batch = next(iter(DataLoader(dset, batch_size=2)))
+    perm = dset.mirror_permutation
+    kw = dict(iters=PCK_ITERS, padding_mode="border")
+    res = {}
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        dev = next(m.parameters()).device
+        A, B, kA, kB, vis, tA, tB = pck_app.batch_tensors(batch, dev)
+        with torch.inference_mode():
+            A, B, kA, kB, pick = stn_ops.composed_match_flows(
+                m, A, B, kA, kB, permutation=perm, **kw)
+            moved = [stn_ops.composed_transfer_points(m, src, dst, k, **kw)
+                     for src, dst, k in ((A, B, kA), (B, A, kB))]
+            counts = pck_app.pck_batch(m, *pck_app.batch_tensors(batch, dev),
+                                       PCK_ALPHAS, transfer_both_ways=True,
+                                       permutation=perm, **kw)
+        ties = [nn_inputs(m, src, k, PCK_ITERS) for src, k in ((A, kA),
+                                                               (B, kB))]
+        res[name] = dict(pick=pick.cpu(), moved=[t.cpu() for t in moved],
+                         counts=[t.cpu() for t in counts],
+                         ties=[[t.cpu() for t in x] for x in ties])
+    card, cpu = res["card"], res["cpu"]
+    check(torch.equal(card["pick"], cpu["pick"]),
+          f"match_flows picks {card['pick'].ravel().tolist()} on the card, "
+          f"{cpu['pick'].ravel().tolist()} on the CPU path")
+    n_ties, pt_err = 0, 0.0
+    for way in range(2):
+        grid, pts, ref_picks = cpu["ties"][way]
+        tie = near_tie_picks(grid, pts, card["ties"][way][2], ref_picks)
+        n_ties += int(tie.sum())
+        keep = ~tie
+        pt_err = max(pt_err, float((card["moved"][way][keep]
+                                    - cpu["moved"][way][keep]).abs().max()))
+    check(pt_err <= AR_PT_TOL, f"PCK: transferred points {pt_err:.3e} px "
+          "from the CPU path")
+    check(torch.equal(card["counts"][0], cpu["counts"][0])
+          and float(card["counts"][1]) == float(cpu["counts"][1]),
+          f"PCK counts {card['counts']} on the card, {cpu['counts']} on the "
+          "CPU path")
+    small = image_lmdb(os.path.join(out, "four"), imgs[:4])
+    scores = {name: flow_app.compute_flow_scores(
+        m, small, batch=4, save=False, device=next(m.parameters()).device)
+        for name, m in (("card", model), ("cpu", cpu_model))}
+    rel = float(np.abs(scores["card"] - scores["cpu"]).max()
+                / np.abs(scores["cpu"]).max())
+    check(rel <= SCORE_RTOL, f"flow scores {rel:.3e} relative from the CPU "
+          "path")
+    decided, aligned = {}, {}
+    x = torch.from_numpy(imgs[:4])
+    x_in, bounds = interpolate_bilinear(x, 128, 128), torch.full((4, 2), 256.0)
+    cpu64 = copy.deepcopy(cpu_model).double()
+    for name, m, cudnn, dtype in (
+            ("card", model, True, torch.float32),
+            ("card, no cuDNN", model, False, torch.float32),
+            ("cpu", cpu_model, True, torch.float32),
+            ("cpu float64", cpu64, True, torch.float64)):
+        dev = next(m.parameters()).device
+        torch.backends.cudnn.enabled = cudnn
+        with torch.inference_mode():
+            a, scale, oob = congeal_app.congeal_batch(
+                m, *(t.to(dev, dtype) for t in (x_in, x, bounds)), 256)
+            M = m.stns[0](x_in.to(dev, dtype), input_img_for_sampling=x.to(
+                dev, dtype), output_resolution=256)[2].cpu().double()
+        torch.backends.cudnn.enabled = True
+        aligned[name] = (a.cpu().double(), M)
+        decided[name] = ((scale.cpu() * 256 >= 192) & ~oob.cpu()).tolist()
+    del cpu64
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        decided[name + " app"] = congeal_app.align_and_filter_dataset(
+            m, small, os.path.join(out, f"aligned_{name}"), batch=4,
+            device=next(m.parameters()).device)
+    check(all(decided[k] == decided["cpu"] for k in aligned)
+          and decided["card app"] == decided["cpu app"],
+          f"congeal_dataset decisions differ: {decided}")
+    # The aligned images and the similarity matrix of each path against
+    # the CPU path and against float64; then the warp alone on one grid.
+    # cuDNN's own algorithms carry several times float32's rounding into
+    # the regressed matrix, which the 256 px output turns into about 5e-4
+    # (PERF.md): the gate holds the card's path with its native
+    # convolutions, and cuDNN's reading is printed beside it.
+    far = {k: [float((aligned[k][i] - aligned["cpu"][i]).abs().max())
+               for i in range(2)] for k in aligned}
+    to64 = {k: float((aligned[k][0] - aligned["cpu float64"][0]).abs().max())
+            for k in aligned}
+    grid = affine_grid(aligned["cpu"][1].float(), (4, 3, 256, 256))
+    card_dev = next(model.parameters()).device
+    with torch.inference_mode():
+        warp = float((stn_ops._warp(x.to(card_dev), grid.to(card_dev), True,
+                                    "border").cpu()
+                      - stn_ops._warp(x, grid, True, "border")).abs().max())
+    check(far["card, no cuDNN"][0] <= OUT_TOL,
+          f"aligned images {far['card, no cuDNN'][0]:.3e} from the CPU path")
+    check(warp <= KERNEL_TOL, f"the warp on one grid {warp:.3e} from the CPU "
+          "path")
+    print(f"card vs CPU path, eval on 2 pairs and 4 images: match_flows "
+          f"picks {card['pick'].ravel().tolist()} equal; transferred points "
+          f"{pt_err:.3e} px ({n_ties} near-tie inversion picks of "
+          f"{2 * card['moved'][0].shape[0] * card['moved'][0].shape[1]}); "
+          f"PCK counts {card['counts'][0].tolist()} of "
+          f"{float(card['counts'][1])} equal; flow scores {rel:.3e} "
+          f"relative; congeal_dataset decisions {decided['card']} and "
+          f"accepted {decided['card app']} equal [{card_name}]")
+    print("card vs CPU path, congeal_batch's aligned images (similarity "
+          "matrices) of 4 images at 256 px: "
+          + "; ".join(f"{k} {far[k][0]:.3e} ({far[k][1]:.3e}) from the CPU "
+                      f"path, {to64[k]:.3e} from float64"
+                      for k in ("card", "card, no cuDNN", "cpu"))
+          + f"; the warp alone on the CPU path's grid {warp:.3e} "
+          f"[{card_name}]")
+
+
+def eval_clis(path, d, imgs, label_png):
+    """Each eval CLI's main() once on the card, on small inputs, and the
+    files it writes."""
+    from PIL import Image
+    small = image_lmdb(os.path.join(d, "cli_pck"), imgs[:8])
+    spair_sidecars(small, 8, np.random.RandomState(9))
+    vis = os.path.join(d, "pck_vis")
+    pck, _ = pck_cli.main(["--ckpt", path, "--real_data_path", small,
+                           "--batch", "4", "--vis_transfer", "--out", vis,
+                           "--device", "cuda"])
+    check_pck(pck)
+    for name in ("transfer_grid.png", "congealed.png"):
+        check(os.path.getsize(os.path.join(vis, "transfers", name)) > 0,
+              f"cli.pck wrote no {name}")
+    distinct = np.delete(imgs, np.s_[1::4], 0)[:16]  # no image twice
+    data = image_lmdb(os.path.join(d, "cli_data"), distinct)
+    scores = flow_scores_cli.main(["--ckpt", path, "--real_data_path", data,
+                                   "--device", "cuda"])
+    cache = os.path.join(data, "flow_scores.pt")
+    check(scores.shape == (len(distinct),) and os.path.getsize(cache) > 0,
+          "cli.flow_scores wrote no scores")
+    out = os.path.join(d, "cli_aligned")
+    used = congeal_dataset_cli.main(["--ckpt", path, "--real_data_path",
+                                     data, "--out", out, "--device", "cuda"])
+    check(LMDBReader(out).get(b"length") == str(len(used)).encode(),
+          "cli.congeal_dataset wrote no LMDB of its accepted images")
+    folder = os.path.join(d, "pngs")
+    os.makedirs(folder)
+    for i, img in enumerate(imgs[:8]):
+        Image.fromarray(np.round((img + 1) * 127.5).astype(np.uint8)
+                        .transpose(1, 2, 0)).save(
+            os.path.join(folder, f"{i:05d}.png"))
+    built = os.path.join(d, "built")
+    n = prepare_data_cli.main(["--out", built, "--path", folder, "--size",
+                               "256,128", "--format", "png"])
+    check(n == 8 and MultiResolutionDataset(built, 128)[7].shape
+          == (3, 128, 128), "cli.prepare_data built no dataset")
+    vis = os.path.join(d, "prop_vis")
+    with recorded(splat_ops, "splat2d_pair_cuda") as k6:
+        result = propagate_cli.main([
+            "--ckpt", path, "--real_data_path", data, "--label_path",
+            label_png, "--objects", "--flow_scores", cache,
+            "--fraction_retained", "0.5", "--n_images", "8", "--resolution",
+            "128", "--out", vis, "--device", "cuda"])
+    check_ar(result, min(8, len(flow_app.get_high_score_indices(scores,
+                                                                0.5))))
+    for name in ("congealed.png", "propagated.png"):
+        check(os.path.getsize(os.path.join(vis, name)) > 0,
+              f"cli.propagate_to_images wrote no {name}")
+    print(f"eval CLIs on the card: cli.pck PCK {pck.tolist()} and its "
+          f"transfer visuals, cli.flow_scores {scores.shape[0]} scores, "
+          f"cli.congeal_dataset {len(used)} of {len(distinct)} accepted, "
+          f"cli.prepare_data {n} images at 256 and 128 px, "
+          f"cli.propagate_to_images {result['propagated'].shape[0]} images "
+          f"of the flow-filtered set")
+    return k6
+
+
+def evaluate(dev, card):
+    """The eval path on the card (the eval phase)."""
+    start = time.perf_counter()
+    d = tempfile.mkdtemp()
+    path = os.path.join(d, "stn.pt")
+    make_checkpoint(path)
+    model, cfg = load_stn(path, supersize=256, device=dev)
+    cpu_model, _ = load_stn(path, supersize=256, device="cpu")
+    check(cfg == FLAGSHIP, f"load_stn built {cfg}")
+    t0 = time.perf_counter()
+    imgs = eval_images(EVAL_IMAGES, 10)
+    data = image_lmdb(os.path.join(d, "pck"), imgs)
+    spair_sidecars(data, EVAL_IMAGES, np.random.RandomState(11))
+    cdata = image_lmdb(os.path.join(d, "congeal"), imgs[:CONGEAL_IMAGES])
+    dset = PCKDataset(data, resolution=256)
+    reader = "native" if dset.reader._h is not None else "pure Python"
+    print(f"eval data: {EVAL_IMAGES} smooth 256 px PNGs in an LMDB, "
+          f"{len(dset)} fixed pairs, {EVAL_KPS} key points an image, written "
+          f"in {time.perf_counter() - t0:.2f} s; LMDB reader: {reader} "
+          f"({'build/torch_native/liblmdb_kv.so' if dset.reader._h else ''})")
+    check(dset.reader._h is not None, "the native LMDB reader did not load")
+    label, rgba = synthetic_label()
+    label_png = write_label(rgba, d)
+    pairs = len(dset)
+
+    # the main path: every launch count starts at 0 here
+    zero_launches()
+    check_pck(run_pck(model, dset, EVAL_BATCH))  # warm-up: the first batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pck = run_pck(model, dset, None)
+    pck_s = time.perf_counter() - t0
+    pck_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_pck(pck)
+    prof = profiled(lambda: run_pck(model, dset, 2 * EVAL_BATCH))
+    pck_groups = kernel_groups(prof, eval_groups())
+    with recorded(mipmap_ops, "mipmap_sample") as k1, \
+            recorded(grid_sample_ops, "grid_sample_cuda") as k2:
+        check_pck(run_pck(model, dset, EVAL_BATCH))
+    check(len(k1) == 20 and len(k2) == 2, f"a PCK batch launched K1 "
+          f"{len(k1)} and K2 {len(k2)} times; expected 20 and 2")
+    errs = ar_kernels_vs_plain(k1, k2, [])
+    del k1, k2
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    scores = flow_app.compute_flow_scores(model, data, batch=EVAL_BATCH,
+                                          device=dev)
+    score_s = time.perf_counter() - t0
+    score_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(scores.shape == (EVAL_IMAGES,) and bool(np.isfinite(scores).all()),
+          "flow scores")
+    prof = profiled(lambda: flow_app.compute_flow_scores(
+        model, cdata, batch=EVAL_BATCH, save=False, device=dev))
+    score_groups = kernel_groups(prof, eval_groups())
+    kept = flow_app.filter_dataset(MultiResolutionDataset(data, 256),
+                                   os.path.join(data, "flow_scores.pt"), 0.5)
+    # a duplicated image scores as its twin: ties at the median drop out
+    check(0 < len(kept) <= EVAL_IMAGES // 2,
+          f"filter_dataset kept {len(kept)}")
+
+    t0 = time.perf_counter()
+    used = congeal_app.align_and_filter_dataset(
+        model, cdata, os.path.join(d, "aligned"), device=dev)
+    congeal_s = time.perf_counter() - t0
+    check(LMDBReader(os.path.join(d, "aligned")).get(b"length")
+          == str(len(used)).encode(), "congeal_dataset wrote no LMDB")
+    t0 = time.perf_counter()
+    k6 = eval_clis(path, d, imgs, label_png)
+    clis_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    hold_pairs(k6, errs, max_sigma=1.3)
+    print(f"eval main path: {pairs // EVAL_BATCH + 4} PCK batches, flow "
+          f"scores over {EVAL_IMAGES + CONGEAL_IMAGES} images, "
+          f"congeal_dataset over {CONGEAL_IMAGES}, the five CLIs; launches "
+          f"{launches}")
+    check(launches["mipmap_sample"] > 0 and launches["grid_sample"] > 0
+          and launches["splat"] > 0
+          and all(launches[k] == 0 for k in LAUNCHES if k not in (
+              "mipmap_sample", "grid_sample", "splat")),
+          f"the eval path launched {launches}")
+    print(f"eval kernel launches held against the plain versions: max abs "
+          f"err K1 {errs['mipmap_sample']:.3e} (20 launches of a PCK "
+          f"batch), K2 {errs['grid_sample']:.3e} (2), K6 "
+          f"{errs['splat']:.3e} (cli.propagate_to_images) [{card}]")
+    print(f"PCK-Transfer: {pairs / pck_s:.2f} pairs/s over {pairs} pairs in "
+          f"{pck_s:.2f} s (batch {EVAL_BATCH}, iters {PCK_ITERS}, 4-way "
+          f"match, both ways, decode included), PCK "
+          f"{', '.join(f'@{a} {p:.4f}' for a, p in zip(PCK_ALPHAS, pck))}, "
+          f"peak memory {pck_peak:.2f} GiB [{card}]")
+    print_groups(f"batch of {EVAL_BATCH} pairs in PCK-Transfer, 2 batches",
+                 2, *pck_groups, card, top=4)
+    print(f"flow scores: {EVAL_IMAGES / score_s:.1f} imgs/s over "
+          f"{EVAL_IMAGES} images in {score_s:.2f} s (batch {EVAL_BATCH}, "
+          f"decode included), peak memory {score_peak:.2f} GiB; "
+          f"filter_dataset at 0.5 kept {len(kept)} [{card}]")
+    print_groups(f"{EVAL_BATCH} images in flow scores, {CONGEAL_IMAGES} "
+                 f"images in {-(-CONGEAL_IMAGES // EVAL_BATCH)} batches",
+                 CONGEAL_IMAGES / EVAL_BATCH, *score_groups, card)
+    print(f"congeal_dataset: {CONGEAL_IMAGES / congeal_s:.1f} imgs/s over "
+          f"{CONGEAL_IMAGES} images in {congeal_s:.2f} s (the CLI's defaults:"
+          f" batch 50, output 256 px, min effective resolution 192), "
+          f"{len(used)} accepted, their PNGs and LMDB written [{card}]")
+    t0 = time.perf_counter()
+    eval_card_vs_cpu(model, cpu_model, dset, imgs, d, card)
+    shutil.rmtree(d)
+    print(f"eval phase: {time.perf_counter() - start:.1f} s; the CLIs "
+          f"{clis_s:.1f} s, the card against the CPU path "
+          f"{time.perf_counter() - t0:.1f} s of it [{card}]")
+    return launches, errs
+
+
 def main():
     dev, card = setup()
     errs, times, bounds, library = kernels_vs_plain(dev)
@@ -2053,9 +2510,11 @@ def main():
         train_times = train(dev, card)
     ar_rate, ar_peak, ar_launches, ar_check_launches, ar_errs, \
         splat_times, k2_ar = ar(dev, card)
+    eval_launches, eval_errs = evaluate(dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
-    for k, v in list(train_errs.items()) + list(ar_errs.items()):
+    for k, v in (list(train_errs.items()) + list(ar_errs.items())
+                 + list(eval_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -2083,14 +2542,14 @@ def main():
     # K2 on the inputs of an AR batch, where most of its main-path
     # launches are
     measured["grid_sample"] = k2_ar
-    # "launches" counts the main path only: serve, cli.train and the AR
-    # apps, each run with every count zeroed just before it. The backward
-    # kernels of the antialias=False form and of an image that needs a
-    # gradient run only in the side checks, which count under
+    # "launches" counts the main path only: serve, cli.train, the AR apps
+    # and the eval apps, each run with every count zeroed just before it.
+    # The backward kernels of the antialias=False form and of an image that
+    # needs a gradient run only in the side checks, which count under
     # "check_launches" with the K6 launches of composed_propagate_object's
     # check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
-                for k in LAUNCHES}
+                + eval_launches[k] for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):

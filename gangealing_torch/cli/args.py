@@ -112,3 +112,25 @@ def base_eval_argparse():
                    help="split eval batches over this many devices "
                         "(default: all; 1 runs on one)")
     return p
+
+
+MULTI_GPU = ("--num_devices > 1 is not ported to gangealing_torch yet; it "
+             "comes with the multi-GPU slice")
+CLUSTERS = ("--num_heads > 1 (clustering models) is not ported to "
+            "gangealing_torch yet; it comes with the cluster slice")
+
+
+def add_device(parser):
+    """The port's one flag beyond the JAX package's: the torch device."""
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to run on (default cuda; raises "
+                             "when no card is visible)")
+    return parser
+
+
+def refuse_later_slices(parser, args):
+    """Refuse an eval CLI's flags of what the port does not run yet."""
+    if args.num_devices is not None and args.num_devices > 1:
+        parser.error(MULTI_GPU)
+    if args.num_heads != 1:
+        parser.error(CLUSTERS)

@@ -8,12 +8,14 @@ applications/mixed_reality.py).
 The flags are the JAX package's (``base_eval_argparse`` plus the app's
 own) and ``--device``, default ``cuda``: the run raises when no card is
 visible. ``--num_devices`` above 1 comes with the multi-GPU slice, a
-clustering model and ``--average_path`` with the cluster slice.
+clustering model (``--num_heads`` above 1) and ``--average_path`` with the
+cluster slice.
 """
 
 import os
 
-from gangealing_torch.cli.args import base_eval_argparse
+from gangealing_torch.cli.args import (
+    add_device, base_eval_argparse, refuse_later_slices)
 
 
 def mixed_reality_argparse():
@@ -42,19 +44,14 @@ def mixed_reality_argparse():
     parser.add_argument("--overlay_congealed", action="store_true",
                         help="overlay the input dense label on the "
                              "congealed video")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to run on (default cuda; raises "
-                             "when no card is visible)")
-    return parser
+    return add_device(parser)
 
 
 def main(argv=None):
     """Run the app as the flags say; returns its result dict."""
     parser = mixed_reality_argparse()
     args = parser.parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        parser.error("--num_devices > 1 is not ported to gangealing_torch "
-                     "yet; it comes with the multi-GPU slice")
+    refuse_later_slices(parser, args)
 
     from gangealing_torch.apps.common import load_stn
     from gangealing_torch.apps.mixed_reality import run_gangealing_on_video

@@ -2,8 +2,9 @@
 STN and the composed STN, as nn.Modules.
 
 Port of gangealing_tpu/models/stn.py (configs, warping heads,
-``stn_forward`` and ``composed_stn_forward``, and the composed STN's point
-functions, flip inference and AR object propagation). Parameter names are the
+``stn_forward`` and ``composed_stn_forward``, the point functions of one
+STN and of the composed STN, flip inference, 4-way flip matching and AR
+object propagation). Parameter names are the
 reference's torch names, which are also the JAX package's flat keys, so
 ``ComposedSTN.load_state_dict`` takes a JAX parameter dict (through
 io/from_jax.py) or a reference checkpoint's ``t_ema`` strictly.
@@ -478,6 +479,112 @@ def convert_points(points, current_res, target_res):
     return unnormalize_points(points, target_res, target_res)
 
 
+def _invert_similarity(matrix):
+    """(N, 2, 3) -> the inverse 3x3, transposed for right-multiplication."""
+    return torch.linalg.inv(make_3x3(matrix)).transpose(1, 2)
+
+
+def _apply_3x3(points, matrix_t):
+    """(N, P, 2) points in homogeneous form times (N, 3, 3), the first two
+    columns. Written as products and sums (no matmul, so no TF32)."""
+    pts = torch.cat([points, torch.ones_like(points[..., :1])], dim=2)
+    out = (pts[:, :, 0:1] * matrix_t[:, None, 0, :2]
+           + pts[:, :, 1:2] * matrix_t[:, None, 1, :2])
+    return out + pts[:, :, 2:3] * matrix_t[:, None, 2, :2]
+
+
+def _nearest_texels(grid_full, points):
+    """Brute-force inversion of a reverse-sampling grid
+    (spatial_transformer.py:656-668): for each of the (N, P, 2) points,
+    the (x, y) texel of the (N, H, W, 2) grid whose value lies nearest.
+
+    The distance is |p|^2 + |g|^2 - 2 <g, p> over every texel, as the JAX
+    package computes it, in f32 from products and sums: no matmul, so
+    TF32 never enters, on the card or off it. That form cancels, so two
+    texels whose distances nearly tie may swap with any change of rounding
+    (another device, another library); ties go to the first texel in
+    row-major order, as jnp.argmin and torch.argmin both take it. The
+    product holds N * H * W * P floats (49 MB at N 50, 128 x 128, P 15)."""
+    N, H, W, _ = grid_full.shape
+    g = grid_full.reshape(N, H * W, 2)
+    sims = (g[:, :, 0:1] * points[:, None, :, 0]
+            + g[:, :, 1:2] * points[:, None, :, 1])  # (N, HW, P)
+    d = ((points ** 2).sum(-1)[:, None, :]
+         + (g ** 2).sum(-1)[:, :, None] - 2 * sims)
+    nn_idx = d.argmin(dim=1)  # (N, P)
+    return torch.stack([nn_idx % W, nn_idx // W], dim=-1).to(points.dtype)
+
+
+def stn_congeal_points(stn, imgA, pointsA, normalize_input_points=True,
+                       unnormalize_output_points=False,
+                       output_resolution=None, iters=1,
+                       input_img_for_sampling=None, return_full=False,
+                       **kwargs):
+    """Map points in the images ``imgA`` to the congealed space of one
+    SpatialTransformer (spatial_transformer.py:631-672): through the
+    inverse similarity, or for a flow head the nearest texel of its
+    residual flow plus the identity. ``kwargs`` go to ``stn.forward``."""
+    source_res = (imgA.shape[-1] if input_img_for_sampling is None
+                  else input_img_for_sampling.shape[-1])
+    outA, _, fomA, _ = stn(imgA, output_resolution=output_resolution,
+                           iters=iters,
+                           input_img_for_sampling=input_img_for_sampling,
+                           **kwargs)
+    if normalize_input_points:
+        pointsA = normalize_points(pointsA, source_res, source_res)
+    if not stn.cfg.is_flow:
+        congealed = _apply_3x3(pointsA, _invert_similarity(fomA))
+        if unnormalize_output_points:
+            congealed = unnormalize_points(congealed, source_res, source_res)
+    else:
+        ident = identity_grid(1, fomA.shape[1], fomA.shape[2],
+                              dtype=fomA.dtype, device=fomA.device)
+        congealed = _nearest_texels(fomA + ident, pointsA)
+    if return_full:
+        return outA, fomA, congealed
+    return congealed
+
+
+def stn_uncongeal_points(stn, imgB, points_congealed,
+                         unnormalize_output_points=True,
+                         normalize_input_points=False, output_resolution=None,
+                         iters=1, input_img_for_sampling=None,
+                         return_congealed_img=False, **kwargs):
+    """Map congealed-space points into the images ``imgB`` through one
+    SpatialTransformer (spatial_transformer.py:674-707)."""
+    source_res = (imgB.shape[-1] if input_img_for_sampling is None
+                  else input_img_for_sampling.shape[-1])
+    outB, gridB, fomB, _ = stn(imgB, output_resolution=output_resolution,
+                               iters=iters,
+                               input_img_for_sampling=input_img_for_sampling,
+                               **kwargs)
+    if normalize_input_points:
+        points_congealed = normalize_points(points_congealed, source_res,
+                                            imgB.shape[-1])
+    if not stn.cfg.is_flow:
+        pointsB = _apply_3x3(points_congealed, make_3x3(fomB).transpose(1, 2))
+    else:
+        pointsB = sample_grid_at_points(gridB, points_congealed)
+    if unnormalize_output_points:
+        pointsB = unnormalize_points(pointsB, imgB.shape[-1], source_res)
+    if return_congealed_img:
+        return pointsB, outB
+    return pointsB
+
+
+def stn_transfer_points(stn, imgA, imgB, pointsA, output_resolution=None,
+                        iters=1, **kwargs):
+    """Points of ``imgA`` carried into ``imgB`` through one
+    SpatialTransformer's congealed space."""
+    congealed = stn_congeal_points(stn, imgA, pointsA,
+                                   output_resolution=output_resolution,
+                                   iters=iters, **kwargs)
+    return stn_uncongeal_points(stn, imgB, congealed,
+                                normalize_input_points=False,
+                                output_resolution=output_resolution,
+                                iters=iters, **kwargs)
+
+
 def sample_grid_at_points(grid, points):
     """Sample an (N, H, W, 2) grid at (N, P, 2) normalized points, bilinear
     with border padding (spatial_transformer.py:704). On the card the
@@ -510,6 +617,45 @@ def composed_uncongeal_points(model, imgB, points_congealed,
     return pointsB
 
 
+def composed_congeal_points(model, imgA, pointsA, output_resolution=None,
+                            iters=1, normalize_input_points=True,
+                            unnormalize_output_points=False,
+                            return_full=False, **kwargs):
+    """Map points in the images ``imgA`` to the composed STN's congealed
+    space, stage by stage (spatial_transformer.py:159-182)."""
+    outA, warpA, congealed = imgA, None, pointsA
+    n_minus_1 = len(model.stns) - 1
+    for i, stn in enumerate(model.stns):
+        last = i == n_minus_1
+        outA, warpA, congealed = stn_congeal_points(
+            stn, outA, congealed,
+            normalize_input_points=normalize_input_points if i == 0 else True,
+            unnormalize_output_points=(unnormalize_output_points if last
+                                       else True),
+            iters=iters if i == 0 else 1,
+            output_resolution=(output_resolution if last
+                               else model.cfg.flow_size),
+            base_warp=warpA, input_img_for_sampling=imgA, return_full=True,
+            **kwargs)
+    if return_full:
+        return outA, warpA, congealed
+    return congealed
+
+
+def composed_transfer_points(model, imgA, imgB, pointsA,
+                             output_resolution=None, iters=1, **kwargs):
+    """Points of ``imgA`` carried into ``imgB`` through the congealed space
+    (spatial_transformer.py:184-198): the congealing stages on A, then one
+    composed forward on B with its grid sampled at the points (K2)."""
+    congealed = composed_congeal_points(
+        model, imgA, pointsA, output_resolution=output_resolution,
+        iters=iters, normalize_input_points=True, **kwargs)
+    return composed_uncongeal_points(
+        model, imgB, congealed, output_resolution=output_resolution,
+        iters=iters, normalize_input_points=True,
+        unnormalize_output_points=True, **kwargs)
+
+
 def composed_forward_with_flip(model, input_img, return_flow=False,
                                return_warp=False, return_inputs=False,
                                return_flip_indices=False, **kwargs):
@@ -537,6 +683,52 @@ def composed_forward_with_flip(model, input_img, return_flow=False,
     if return_flip_indices:
         outs.append(mirror)
     return outs[0] if len(outs) == 1 else outs
+
+
+def _mirror_x(points, flip, width):
+    """The x coordinates of the rows of ``points`` where ``flip`` (N, 1)
+    holds, mirrored in an image ``width`` pixels wide."""
+    x = torch.where(flip, width - 1 - points[..., 0], points[..., 0])
+    return torch.cat([x[..., None], points[..., 1:]], dim=-1)
+
+
+def composed_match_flows(model, imgA, imgB, pointsA, pointsB=None,
+                         permutation=None, **kwargs):
+    """Pairwise 4-way flip matching for PCK-Transfer
+    (spatial_transformer.py:242-295): A, B and their mirrors in one
+    forward at 4N; each pair takes the orientation whose two residual
+    flows are smoothest together (the first of equal sums). Returns the
+    oriented images and points and the pick (N, 1, 1, 1): 0 neither
+    mirrored, 1 A, 2 B, 3 both.
+
+    ``permutation`` reorders the key points of a mirrored image. It is
+    applied to ``pointsA`` once where A is mirrored and once more where B
+    is, as the reference and the JAX package do."""
+    N = imgA.shape[0]
+    imgA_f, imgB_f = imgA.flip(3), imgB.flip(3)
+    inputs = torch.cat([imgA, imgB, imgA_f, imgB_f], dim=0)
+    _, _, flows, _, _ = model(inputs, **kwargs)
+    tvA, tvB, tvAf, tvBf = total_variation_loss(
+        flows, reduce_batch=False).split(N)
+    pick = torch.stack([tvA + tvB, tvAf + tvB, tvA + tvBf,
+                        tvAf + tvBf]).argmin(dim=0)
+    pick4 = pick.reshape(N, 1, 1, 1)
+    imgA = torch.where(pick4 % 2 == 0, imgA, imgA_f)
+    imgB = torch.where(pick4 <= 1, imgB, imgB_f)
+    flipA = (pick % 2 != 0).reshape(N, 1)
+    pointsA = _mirror_x(pointsA, flipA, imgA.shape[-1])
+    if permutation is not None:
+        perm = torch.as_tensor(permutation, dtype=torch.long,
+                               device=pointsA.device)
+        pointsA = torch.where(flipA[:, :, None], pointsA[:, perm], pointsA)
+    if pointsB is not None:
+        flipB = (pick > 1).reshape(N, 1)
+        pointsB = _mirror_x(pointsB, flipB, imgB.shape[-1])
+        if permutation is not None:
+            pointsA = torch.where(flipB[:, :, None], pointsA[:, perm],
+                                  pointsA)
+        return imgA, imgB, pointsA, pointsB, pick4
+    return imgA, imgB, pointsA, pick4
 
 
 def composed_propagate_object(model, congealed_object_points,

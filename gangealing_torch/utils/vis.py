@@ -3,11 +3,11 @@ image grids, image and video writing.
 
 Port of gangealing_tpu/utils/vis.py (reference utils/vis_tools/helpers.py:
 splat_points:135-194, load_dense_label:79-122, images2grid:39-43,
-save_video:55-75, colorscale sampling:125-131). Images are torch tensors in
-[-1, 1] on any device; grids, file writing and label loading go through
-numpy on the host. Plotly colorscales are matplotlib colormaps of the same
-names; video goes through cv2. matplotlib, PIL and cv2 are imported inside
-the functions that need them.
+save_video:55-75, colorscale sampling:125-131, batch_overlay:197-283).
+Images are torch tensors in [-1, 1] on any device; grids, file writing and
+label loading go through numpy on the host. Plotly colorscales are
+matplotlib colormaps of the same names; video goes through cv2.
+matplotlib, PIL and cv2 are imported inside the functions that need them.
 """
 
 import math
@@ -200,3 +200,71 @@ def splat_points(images, points, sigma, opacity, colorscale="turbo",
     if blend_alg in BLEND_CONFIGS:
         return laplacian_blend(images, obj, mask, **BLEND_CONFIGS[blend_alg])
     raise NotImplementedError(blend_alg)
+
+
+# matplotlib's 'turbo' at 33 evenly spaced steps, as 8-bit RGB: the marker
+# colours of batch_overlay, linearly interpolated (within 0.024 of the
+# colormap), so that the overlay needs no matplotlib.
+_TURBO_STEPS = np.array([
+    (48, 18, 59), (57, 42, 115), (64, 64, 162), (68, 86, 199),
+    (70, 107, 227), (70, 128, 246), (66, 148, 255), (55, 168, 250),
+    (40, 188, 235), (28, 205, 216), (24, 221, 194), (31, 233, 175),
+    (50, 242, 152), (78, 249, 125), (109, 254, 98), (139, 255, 75),
+    (164, 252, 60), (185, 246, 53), (205, 236, 52), (223, 223, 55),
+    (238, 207, 58), (248, 190, 57), (253, 172, 52), (254, 150, 43),
+    (251, 126, 33), (244, 102, 23), (235, 80, 14), (223, 63, 8),
+    (208, 47, 5), (190, 33, 2), (169, 22, 1), (146, 11, 1), (122, 4, 3)],
+    np.float32) / 255.0
+
+
+def _turbo_colors(num_points):
+    """(P, 3) colours in [0, 1] along 'turbo', as get_colors(P) spaces
+    them, from the table above."""
+    steps = np.linspace(0, 1, num_points)
+    knots = np.linspace(0, 1, len(_TURBO_STEPS))
+    return np.stack([np.interp(steps, knots, _TURBO_STEPS[:, c])
+                     for c in range(3)], -1)
+
+
+def batch_overlay(images, points, radii=None, out_path=None,
+                  unique_color=False, size=10, normalize=True, opacity=1.0,
+                  colorscale="turbo", range=(-1, 1)):
+    """Overlay key point markers on images and save per-image PNGs
+    (helpers.py:197-283). The JAX package draws with a matplotlib scatter;
+    this draws the same markers with PIL: discs of ``size`` square points
+    at 100 dpi, red, or with ``unique_color`` one colour a point along
+    'turbo' (other colorscales through get_colors, which needs
+    matplotlib).
+
+    images: (N, C, H, W); points: (N, P, 2) pixel xy. Returns a list of
+    (H, W, 3) uint8 arrays."""
+    from PIL import Image, ImageDraw
+    images = _numpy(images)
+    points = _numpy(points)
+    N, C, H, W = images.shape
+    P = points.shape[1]
+    if unique_color:
+        cols = (_turbo_colors(P) if colorscale == "turbo"
+                else _numpy(get_colors(P, colorscale))[0] * 0.5 + 0.5)
+        cols = [tuple(int(v) for v in np.round(c * 255)) for c in cols]
+    else:
+        cols = [(255, 0, 0)] * P
+    radius = math.sqrt(size / math.pi) * 100 / 72  # points to pixels
+    if out_path is not None:
+        os.makedirs(out_path, exist_ok=True)
+    outs = []
+    for i in np.arange(N):
+        img = images[i][None]
+        if normalize:
+            img = normalize_images(img, *range).numpy()
+        arr = (img[0].transpose(1, 2, 0) * 255 + 0.5).clip(0, 255)
+        canvas = Image.fromarray(arr.astype(np.uint8))
+        draw = ImageDraw.Draw(canvas)
+        for (x, y), col in zip(points[i, :, :2], cols):
+            draw.ellipse((x - radius, y - radius, x + radius, y + radius),
+                         fill=col)
+        buf = np.asarray(canvas).copy()
+        outs.append(buf)
+        if out_path is not None:
+            canvas.save(os.path.join(out_path, f"{i:04d}.png"))
+    return outs

@@ -56,7 +56,7 @@ def test_port_imports_no_jax():
     """Every module of the port imports without loading JAX or any module
     of the JAX package, and so do load_stn (here on a path that does not
     exist, which it reports as such) and the CLIs' parsing of their
-    flags."""
+    flags: every CLI that runs the model defaults to the card."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).replace(
             ".__init__", "")
@@ -78,13 +78,27 @@ def test_port_imports_no_jax():
             "a = mixed_reality_argparse().parse_args(\n"
             "    ['--ckpt', 'g.pt', '--video_path', 'v.mp4'])\n"
             "assert a.batch == 50 and a.device == 'cuda'\n"
+            "from gangealing_torch.cli import (congeal_dataset, "
+            "flow_scores, pck, prepare_data, propagate_to_images)\n"
+            "for parser, extra in (\n"
+            "        (pck.pck_argparse(), []),\n"
+            "        (flow_scores.flow_scores_argparse(), []),\n"
+            "        (congeal_dataset.congeal_dataset_argparse(),\n"
+            "         ['--out', 'o']),\n"
+            "        (propagate_to_images.propagate_to_images_argparse(),\n"
+            "         [])):\n"
+            "    a = parser.parse_args(['--ckpt', 'g.pt'] + extra)\n"
+            "    assert a.batch == 50 and a.device == 'cuda'\n"
+            "a = prepare_data.prepare_data_argparse().parse_args(\n"
+            "    ['--out', 'o', '--path', 'p'])\n"
+            "assert a.size == '256' and not hasattr(a, 'device')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gangealing_tpu')))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 30
+    assert len(modules) >= 48
 
 
 def test_port_sources_import_nothing_of_jax():

@@ -166,3 +166,82 @@ def test_model_zoo_matches_jax(tmp_path, monkeypatch):
         with pytest.raises(FileNotFoundError) as ref:
             jdl.find_model(name)
         assert str(ours.value) == str(ref.value)
+
+
+def test_native_lmdb_source_is_a_byte_copy():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "native", "lmdb_kv.cc"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(repo, "gangealing_torch", "native",
+                           "lmdb_kv.cc"), "rb") as f:
+        assert f.read() == ref
+
+
+def test_build_shared_lib_matches_jax(tmp_path):
+    """Both build a missing library, leave a newer one alone, rebuild one
+    older than a source, and on a compile error raise and leave neither a
+    library nor a temp file."""
+    import subprocess
+    from gangealing_torch.data import _native_build as tbuild
+    jbuild = import_module("gangealing_tpu.data._native_build")
+    for name, mod in (("ours", tbuild), ("ref", jbuild)):
+        src = tmp_path / f"{name}_x.cc"
+        src.write_text('extern "C" int gt_x() { return 7; }\n')
+        so = str(tmp_path / name / "b" / "libx.so")
+        assert mod.build_shared_lib([str(src)], so) == so
+        first = os.path.getmtime(so)
+        os.utime(so, (first + 10, first + 10))
+        mod.build_shared_lib([str(src)], so)
+        assert os.path.getmtime(so) == first + 10  # newer: not rebuilt
+        os.utime(str(src), (first + 20, first + 20))
+        mod.build_shared_lib([str(src)], so)
+        assert os.path.getmtime(so) != first + 10  # older: rebuilt
+        import ctypes
+        assert ctypes.CDLL(so).gt_x() == 7
+        bad = tmp_path / f"{name}_bad.cc"
+        bad.write_text("this is not C++\n")
+        bad_so = str(tmp_path / name / "bad" / "libbad.so")
+        with pytest.raises(subprocess.CalledProcessError):
+            mod.build_shared_lib([str(bad)], bad_so)
+        assert os.listdir(os.path.dirname(bad_so)) == []
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _jax_cli_parser(module, monkeypatch):
+    """The parser a JAX package CLI builds inside its main()."""
+    def capture(self, *a, **kw):
+        raise _Parsed(self)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed) as e:
+        import_module(f"gangealing_tpu.cli.{module}").main()
+    monkeypatch.undo()
+    return e.value.args[0]
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("pck", ["--ckpt", "s.pt"]),
+    ("flow_scores", ["--ckpt", "s.pt"]),
+    ("congeal_dataset", ["--ckpt", "s.pt", "--out", "o"]),
+    ("propagate_to_images", ["--ckpt", "s.pt", "-s", "2", "-o", "0.5"]),
+    ("prepare_data", ["--out", "o", "--path", "p", "--n_worker", "3"])])
+def test_eval_cli_parsers_match_jax(module, argv, monkeypatch):
+    """The eval CLIs take the JAX package's flags, defaults and choices
+    and --device (default cuda); the dataset CLI, which runs on the
+    host, takes exactly the JAX package's."""
+    ref = _jax_cli_parser(module, monkeypatch)
+    ours = getattr(import_module(f"gangealing_torch.cli.{module}"),
+                   f"{module}_argparse")()
+    flags, ref_flags = _flags(ours), _flags(ref)
+    parsed, ref_parsed = vars(ours.parse_args(argv)), vars(
+        ref.parse_args(argv))
+    if module == "prepare_data":
+        assert flags == ref_flags and parsed == ref_parsed
+        return
+    assert set(flags) - set(ref_flags) == {"device"}
+    assert flags["device"][0] == "cuda"
+    assert {k: v for k, v in flags.items() if k != "device"} == ref_flags
+    assert parsed.pop("device") == "cuda"
+    assert parsed == ref_parsed
