@@ -3,7 +3,8 @@ them against their plain PyTorch versions, serve the flagship ComposedSTN
 congeal forward through them, train the flagship GANgealing configuration
 through them, and run the AR object-lens app and the eval apps (PCK-Transfer,
 flow scores, congeal_dataset and their CLIs, on LMDB datasets) through
-them.
+them; then train the LSUN-cars clustering configuration and its cluster
+classifier and run the AR apps with that classifier.
 
     python3 chip_smoke.py
 
@@ -110,7 +111,35 @@ Phases:
      is counted), equal PCK counts, flow scores within 1e-4 relative,
      equal congeal_dataset decisions, aligned images within 5e-4 with
      the card's native convolutions (cuDNN's reading printed beside it);
-  7. rates, and each kernel's device time (torch.profiler; K6's by CUDA
+  7. the cluster phase: the reference's LSUN-cars run
+     (scripts/training/lsun_cars.sh: 4 heads and flips, 5 directions,
+     inject 6, G's 256 px image sampled with reflection padding, tv_weight
+     2500, lpips; the cats run's widths) at CARS_BATCH with seeded random
+     G, STN and LPIPS: python -m gangealing_torch.cli.train for 2
+     iterations with --debug (the cold start's PCA on 1000 latents, its
+     centroids the first 4), K1 and K3 twice a step, imgs/s over 8 steps
+     in 4 parts, the peak memory of a step, each K1 and K3 launch of a step
+     held against the plain versions and timed beside them, their bounds
+     (reflected taps) and F.grid_sample on the volume, the pyramid's build
+     on the 2NK repeated sources against the 2N distinct ones, the device
+     time of a step by kernel group with the idle share, and one clustered
+     step at batch 2 from the state cli.train wrote, on the card against
+     the port's CPU path (equal assignments, a difference at a near tie of
+     the distances counted and the step taken again with the next z; loss
+     terms 1e-4 relative, TRAIN_GRAD_TOL, TRAIN_GRAD_L2_TOL); python -m
+     gangealing_torch.cli.train_cluster_classifier on the cars checkpoint
+     (lsun_cars_cluster_classifier.sh: 8 logits, warm-started from the
+     STN's EMA) at CLS_BATCH, its imgs/s and peak, classifier.pt loaded
+     back through
+     load_stn(load_classifier=True), one step at batch 2 on the card
+     against the CPU path (equal labels, cross-entropy 1e-4 relative);
+     one K-Means++ of 4 centroids over KMEANS_LATENTS latents, timed; the
+     AR apps with the classifier (each frame through its one head): frames/s
+     at batch 50, a batch with the cluster-activity video (average.mp4),
+     propagate_to_images with and without a cluster, K1 4, K2 1 and K6 1
+     a batch held against the plain versions, and 2 frames on the card
+     against the CPU path (equal clusters and flips, the AR gates);
+  8. rates, and each kernel's device time (torch.profiler; K6's by CUDA
      events around back-to-back calls, as a profile of it now and then
      misses launches) beside its plain version's, its bound on the card (the bytes of an image that
      these grids must read counted as the distinct texels their taps reach;
@@ -123,8 +152,8 @@ Phases:
      those of an AR batch, K5a's and K5b's those of the train phase's
      check (three kernels a call each), and the
      N=8 ones a toy-size line apart; the kernels line, whose
-     "launches" are the main path's (serve, cli.train, the AR apps and the
-     eval apps) and
+     "launches" are the main path's (serve, cli.train, the AR apps, the
+     eval apps and the cluster phase) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -164,6 +193,7 @@ from gangealing_torch.cli import pck as pck_cli
 from gangealing_torch.cli import prepare_data as prepare_data_cli
 from gangealing_torch.cli import propagate_to_images as propagate_cli
 from gangealing_torch.cli import train as train_cli
+from gangealing_torch.cli import train_cluster_classifier as cls_cli
 from gangealing_torch.data.dataset import (
     DataLoader, MultiResolutionDataset, PCKDataset)
 from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
@@ -187,7 +217,10 @@ from gangealing_torch.ops.mipmap import (
 from gangealing_torch.ops.resample import interpolate_bilinear
 from gangealing_torch.ops.splat import splat2d, splat2d_pair
 from gangealing_torch.train import checkpoint as train_ckpt
-from gangealing_torch.train.losses import gangealing_loss
+from gangealing_torch.train.classifier_train import ClassifierTrainer
+from gangealing_torch.train.clustering import kmeans_plusplus
+from gangealing_torch.train.losses import (
+    assign_fake_images_to_clusters, gangealing_loss)
 from gangealing_torch.train.state import TrainState, train_step
 
 PADDINGS = ("border", "reflection", "zeros")
@@ -272,9 +305,10 @@ SKEWED = {"zoom-in": 0.25, "border pile": 2.0}
 
 
 # The kernels the main path launches: K1 and K2 in serve (K2 in its
-# antialias=False forward), K1 and K3 in every train step, K1, K2 and K6 in
-# every batch of the AR app, K1 and K2 in every PCK batch and K6 in
-# cli.propagate_to_images.
+# antialias=False forward), K1 and K3 in every train step (the cars step's
+# too), K1, K2 and K6 in every batch of the AR app (with the classifier
+# too), K1 and K2 in every PCK batch, K6 in cli.propagate_to_images and K1
+# in every classifier step.
 MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords",
                      "splat")
 
@@ -494,16 +528,19 @@ def pyramid_texel_bytes(image_shape, grid, levels, padding_mode="border",
     rebuilt from the distinct texels of its native (Hp/2^d, Wp/2^d) level
     that interpolate_bilinear weighs with a nonzero weight (on level 0 the
     tap itself). Hp, Wp: the size reflect-padded to a power of 2, as the
-    pyramid stores it. C float32 values each."""
-    check(padding_mode in ("border", "zeros"), f"texels: {padding_mode}")
+    pyramid stores it. C float32 values each. Border padding clamps the
+    taps into the image, reflection padding reflects them into it, zeros
+    padding drops those outside it."""
     N, C, H, W = image_shape
     size = 2 ** math.ceil(math.log2(W))
     lp = (size - W) // 2
     D = 4
-    ix = ((grid[..., 0] + 1) * W - 1) / 2
-    iy = ((grid[..., 1] + 1) * H - 1) / 2
-    if padding_mode == "border":
-        ix, iy = ix.clamp(0, W - 1), iy.clamp(0, H - 1)
+    # the padding rule of the samplers: clamped (border), reflected into
+    # the image and clamped (reflection), or left outside (zeros)
+    ix = grid_sample_ops._compute_coords(grid[..., 0], W, padding_mode,
+                                         False)
+    iy = grid_sample_ops._compute_coords(grid[..., 1], H, padding_mode,
+                                         False)
     f = levels.floor()
     ls = [f, levels.ceil()]
     if dcoords:
@@ -2501,6 +2538,540 @@ def evaluate(dev, card):
     return launches, errs
 
 
+# The cluster phase: the reference's LSUN-cars run
+# (scripts/training/lsun_cars.sh: 4 heads and flips, 5 directions, inject
+# 6, G's 256 px image sampled, reflection padding, tv_weight 2500, lpips;
+# the argparse defaults for the rest, the cats run's widths) at CARS_BATCH
+# on one card, seeded random G, STN and LPIPS, --debug (the cold start's
+# PCA on 1000 latents and its centroids the first 4 of them); then its
+# classifier (scripts/training/lsun_cars_cluster_classifier.sh: 2K = 8
+# logits, warm-started from the trained STN's EMA) and the AR apps with
+# it. CARS_BATCH: the largest multiple of 5 up to the recipe's global 40
+# whose step peaks under 90% of the card's 80 GB (PERF.md section 4).
+# CLS_BATCH: the classifier recipe's global 40 (8 GPUs x 5), which one card
+# holds, as its step runs no backward through G, the STN or LPIPS.
+CARS_BATCH = 20
+CARS_HEADS = 4
+CARS_ITERS = 2
+CARS_TIMED = 8
+CLS_BATCH = 40
+CLS_ITERS = 2
+CLS_TIMED = 4
+# K-Means++ timed once at this many latents (the recipe takes 50,000)
+KMEANS_LATENTS = 1000
+# two distances, or two logits, closer than this (relative) are a near
+# tie, where the card and the CPU may decide apart
+NEAR_TIE = 1e-5
+
+
+def cars_argv(results, ckpt, batch, iters, *extra):
+    """The LSUN-cars flags (lsun_cars.sh) for ``iters`` iterations at
+    ``batch`` on one card, a checkpoint at the last."""
+    return ["--exp-name", "cars", "--results", results, "--ckpt", ckpt,
+            "--padding_mode", "reflection", "--tv_weight", "2500",
+            "--loss_fn", "lpips", "--num_heads", str(CARS_HEADS), "--flips",
+            "--ndirs", "5", "--inject", "6", "--sample_from_full_res",
+            "--batch", str(batch), "--iter", str(iters), "--ckpt_every",
+            str(iters), "--vis_every", "0", "--log_every", "1", "--debug",
+            *extra]
+
+
+def cluster_step_batch2(cfg, seed):
+    """z and both generator passes' noise of a batch-2 clustered step (the
+    second pass at 2K images)."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(2, cfg.g.style_dim, generator=g)
+    return z, [[torch.randn(s, generator=g) for s in cfg.g.noise_shapes(b)]
+               for b in (2, 2 * cfg.t.num_heads)]
+
+
+def cluster_step_grads(cfg, t, ll, generator, perceptual, d, z, noise):
+    """One clustered step's loss terms, assignments and the gradients of
+    every STN and ``ll`` parameter on device ``d``, from copies."""
+    loss = make_perceptual_loss(cfg.loss_fn)
+    gen = copy.deepcopy(generator).to(d)
+    lp = copy.deepcopy(perceptual).to(d)
+    st = TrainState(cfg, copy.deepcopy(t).to(d), copy.deepcopy(ll).to(d))
+    m = train_step(st, gen, lambda x, y: loss(lp, x, y), z.to(d), 0.5,
+                   0.0, 0.0, noise=[[n.to(d) for n in ns] for ns in noise])
+    grads = {k: p.grad.cpu() for k, p in st.t.named_parameters()}
+    grads["ll.coefficients"] = st.ll.coefficients.grad.cpu()
+    assigned = m.pop("assignments").cpu()
+    return {k: float(v) for k, v in m.items()}, grads, assigned
+
+
+def cpu_distances(cfg, t, ll, generator, perceptual, z, noise):
+    """The CPU path's distances of a batch-2 step: which rows are near
+    ties."""
+    loss = make_perceptual_loss(cfg.loss_fn)
+    with torch.no_grad():
+        return assign_fake_images_to_clusters(
+            copy.deepcopy(generator).cpu(), copy.deepcopy(t).cpu(),
+            copy.deepcopy(ll).cpu(),
+            lambda x, y: loss(copy.deepcopy(perceptual).cpu(), x, y), z, 0.5,
+            cfg.t.num_heads, cfg.flips, freeze_ll=cfg.freeze_ll,
+            sample_from_full_res=cfg.sample_from_full_res,
+            padding_mode=cfg.padding_mode, noise=noise)[6]
+
+
+def near_ties(distances):
+    """Rows whose two least distances are within NEAR_TIE relative."""
+    d = distances.sort(dim=1).values
+    return ((d[:, 1] - d[:, 0]) / d[:, 0].abs() <= NEAR_TIE).nonzero()[:, 0]
+
+
+def cluster_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev):
+    """One clustered step at batch 2 (K = 4, flips) on the card and on the
+    port's CPU path: equal assignments, loss terms 1e-4 relative, the
+    gradients within TRAIN_GRAD_TOL (each tensor) and TRAIN_GRAD_L2_TOL
+    (all). An assignment that differs at a near tie of the CPU path's
+    distances is counted and printed, and the step is taken again with the
+    next z (up to 3); any other difference fails."""
+    ties = 0
+    for seed in (7, 8, 9):
+        z, noise = cluster_step_batch2(cfg, seed)
+        runs = [cluster_step_grads(cfg, t, ll, generator, perceptual, d, z,
+                                   noise) for d in (dev, torch.device("cpu"))]
+        differ = (runs[0][2] != runs[1][2]).nonzero()[:, 0]
+        if len(differ):
+            near = set(near_ties(cpu_distances(
+                cfg, t, ll, generator, perceptual, z, noise)).tolist())
+            print(f"card vs CPU path, a clustered step at batch 2 (z seed "
+                  f"{seed}): assignments {runs[0][2].tolist()} vs "
+                  f"{runs[1][2].tolist()}, rows {differ.tolist()} differ, "
+                  f"near ties (within {NEAR_TIE} relative) {sorted(near)}")
+            check(set(differ.tolist()) <= near, "the clustered step's "
+                  "assignments differ from the CPU path away from a tie")
+            ties += len(differ)
+            continue
+        rel, worst, l2 = compare_steps(runs[0][:2], runs[1][:2])
+        print(f"card vs CPU path, a clustered step at batch 2, K "
+              f"{cfg.t.num_heads}, flips (z seed {seed}): assignments "
+              f"{runs[0][2].tolist()} equal; loss terms {runs[0][0]} vs "
+              f"{runs[1][0]} (relative {rel:.3e}); worst gradient "
+              f"{worst[1]} at {worst[0]:.3e} of its largest value; all "
+              f"gradients {l2:.3e} in relative L2 norm; assignments that "
+              f"differed at a near tie before this z: {ties}")
+        check(rel <= 1e-4, "the clustered step's loss terms differ from the "
+              "CPU path")
+        check(worst[0] <= TRAIN_GRAD_TOL and l2 <= TRAIN_GRAD_L2_TOL,
+              "the clustered step's gradients differ from the CPU path")
+        return ties
+    raise AssertionError("three clustered steps each met a near tie")
+
+
+def cars_kernels(state, step, card):
+    """Each K1 and K3 launch of one cars step held against its plain
+    version (reflection padding, 2NK streams over G's 256 px image); K1
+    and K3 timed on those inputs beside their plain versions, bounds and
+    F.grid_sample on the volume; the pyramid's build on the 2NK repeated
+    sources against one for each of the 2N images. Returns the errors and
+    K1's and K3's figures, per launch, averaged over the two heads."""
+    with recorded(mipmap_ops, "mipmap_sample") as k1, \
+            recorded(mipmap_ops, "mipmap_sample_dcoords") as k3, \
+            recorded(stn_ops, "mipmap_warp") as warps:
+        step()
+    check(len(k1) == 2 and len(k3) == 2, "a cars step did not launch K1 "
+          "and K3 twice")
+    errs = {}
+    with torch.no_grad():
+        hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
+             errs)
+    hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), errs)
+    rows = []
+    for head, (args, out), wargs in zip(("similarity", "flow"), k1, warps):
+        pyramid, grid, levels, pm = args
+        img = wargs[0][0].detach()
+        with torch.inference_mode():
+            ms = device_ms(lambda: mipmap_sample(*args))
+            plain_ms = device_ms(lambda: _sample_pyramid(*args))
+            volume = as_volume(_rebuild_stack(pyramid))
+            grid3 = volume_grid(grid, levels, pyramid.shape.num_levels)
+            lib_ms = device_ms(lambda: F.grid_sample(
+                volume, grid3, mode="bilinear", padding_mode=pm,
+                align_corners=False))
+            del volume, grid3
+            b = bound(pyramid_texel_bytes(img.shape, grid, levels, pm)
+                      + nbytes(grid, levels, out),
+                      sampler_ops("mipmap_sample", levels.numel(),
+                                  out.shape[1]))
+            streams = img.shape[0]
+            build_ms = device_ms(lambda: _build_pyramid(
+                img, pyramid.shape.num_levels))
+            once_ms = device_ms(lambda: _build_pyramid(
+                img[::CARS_HEADS], pyramid.shape.num_levels))
+        w_ms, w_k_ms = warp_ms(img, grid.detach(), pm, backward=True)
+        print(f"K1 in the {head} head of a cars step, inputs "
+              f"{tuple(img.shape)} {tuple(grid.shape)} ({pm}), levels "
+              f"{float(levels.detach().min()):.2f}-"
+              f"{float(levels.detach().max()):.2f}, device "
+              f"time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.grid_sample on the volume {lib_ms:.4f} ms; bound on the "
+              f"pyramid {b[0]:.4f} ms ({b[1]}); the warp and its backward "
+              f"to the grid {w_ms:.4f} ms, its mipmap kernels {w_k_ms:.4f} "
+              f"ms; the pyramid's build on the {streams} repeated sources "
+              f"{build_ms:.4f} ms, on the {streams // CARS_HEADS} distinct "
+              f"ones {once_ms:.4f} ms [{card}]")
+        rows.append((ms, plain_ms, *b, lib_ms))
+    k1_row = tuple((rows[0][i] + rows[1][i]) / 2 if i != 3 else rows[1][i]
+                   for i in range(5))
+    k3_row = backward_times(k3, k3_graph, mipmap_ops.mipmap_sample_dcoords)
+    print(f"K3 at the cars step's shapes (the similarity head's launch), "
+          f"device time: kernel {k3_row[0]:.4f} ms, plain autograd "
+          f"{k3_row[1]:.4f} ms, backward of F.grid_sample on the volume "
+          f"{k3_row[4]:.4f} ms; bound {k3_row[2]:.4f} ms ({k3_row[3]}) "
+          f"[{card}]")
+    print(f"K1 and K3 launches of a cars step held against the plain "
+          f"versions: max abs err K1 {errs['mipmap_sample']:.3e}, K3 "
+          f"{errs['mipmap_sample_dcoords']:.3e}")
+    return errs, {"mipmap_sample": k1_row, "mipmap_sample_dcoords": k3_row}
+
+
+def cars_train(dev, card, d, batch):
+    """cli.train on the cars flags, the timed steps, the kernels at their
+    shapes, where the time goes, and the card against the CPU path.
+    Returns the state and what the classifier and the report need."""
+    gpath = os.path.join(d, "g.pt")
+    gen = Generator(GeneratorConfig(),
+                    generator=torch.Generator().manual_seed(3))
+    torch.save({"g_ema": gen.state_dict()}, gpath)
+    del gen
+    results = os.path.join(d, "results")
+    zero_launches()
+    t0 = time.perf_counter()
+    state, generator, perceptual, pfn = train_cli.main(
+        cars_argv(results, gpath, batch, CARS_ITERS, "--load_G_only"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    cfg = state.cfg
+    print(f"cli.train, the cars run: {CARS_ITERS} iterations at batch "
+          f"{batch} ({2 * batch * CARS_HEADS} streams a step) with the cold "
+          f"start in {seconds:.1f} s; launches {launches}")
+    check(cfg.t.num_heads == CARS_HEADS and cfg.flips
+          and cfg.padding_mode == "reflection" and cfg.sample_from_full_res
+          and cfg.loss_fn == "lpips" and cfg.ll.n_comps == 5
+          and cfg.ll.inject_index == 6, f"cars config {cfg}")
+    check(launches["mipmap_sample"] == 2 * CARS_ITERS
+          and launches["mipmap_sample_dcoords"] == 2 * CARS_ITERS
+          and sum(launches.values()) == 4 * CARS_ITERS,
+          "expected 2 K1 and 2 K3 launches per cars step")
+    ckpt = os.path.join(results, "cars", "checkpoints",
+                        f"{str(CARS_ITERS).zfill(7)}.pt")
+    check(os.path.getsize(ckpt) > 0, "cli.train wrote no cars checkpoint")
+    # The card is held against the CPU path at the state cli.train wrote.
+    # The steps below go on training the random weights, and within ten
+    # steps the similarity head zooms out until every level is the top
+    # one; there a float32 step is ill-conditioned on any device, as a
+    # relative rounding of the scale moves samples by whole texels.
+    t_cli, ll_cli = copy.deepcopy(state.t), copy.deepcopy(state.ll)
+    rng = torch.Generator(dev).manual_seed(5)
+    assigned = []
+
+    def step():
+        z = torch.randn(batch, cfg.g.style_dim, generator=rng, device=dev)
+        m = train_step(state, generator, pfn, z, 0.5, 1e-3, 1e-2, rng=rng)
+        assigned.append(m.pop("assignments"))
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    part = CARS_TIMED // SUBWINDOWS
+    ms = timed_parts(lambda w: [step() for _ in range(part)],
+                     lambda m: check(all(math.isfinite(float(v))
+                                         for v in m.values()),
+                                     "a cars step is not finite"))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    rate = batch * CARS_TIMED / (sum(ms) / 1e3)
+    counts = torch.bincount(torch.cat(assigned).cpu(),
+                            minlength=2 * CARS_HEADS).tolist()
+    print(f"cars step, batch {batch}: {rate:.2f} imgs/s over {CARS_TIMED} "
+          f"steps in {sum(ms) / 1e3:.2f} s (in {SUBWINDOWS} parts: "
+          f"{', '.join(f'{batch * part / (t / 1e3):.2f}' for t in ms)}), "
+          f"{sum(ms) / CARS_TIMED:.1f} ms a step, peak memory of a step "
+          f"{peak:.2f} GiB of {total:.2f}; the fakes' heads and flips over "
+          f"the steps {counts} [{card}]")
+    errs, rows = cars_kernels(state, step, card)
+    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
+              ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
+              ("depthwise FIR convs", ("conv_depthwise2d",)),
+              CONV_GROUP,
+              ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
+              ("reductions", ("reduce",)),
+              ("pads", ("pad",)),
+              ("gather, scatter and index", ("gather", "scatter", "index")))
+    prof = profiled(lambda: step())
+    print_groups(f"step of the cars run at batch {batch}, 1 step", 1,
+                 *kernel_groups(prof, groups), card, top=8)
+    ties = cluster_card_vs_cpu_step(cfg, t_cli, ll_cli, generator,
+                                    perceptual, dev)
+    del t_cli, ll_cli
+    return (state, generator, perceptual, pfn, ckpt, launches, rate, peak,
+            errs, rows, ties)
+
+
+def cls_argv(results, ckpt, batch, iters):
+    """lsun_cars_cluster_classifier.sh's flags at ``batch``."""
+    return cars_argv(results, ckpt, batch, iters, "--period", "50000",
+                     "--exp-name", "cars_cls")
+
+
+def classifier_phase(dev, card, d, state, generator, perceptual, pfn, ckpt,
+                     batch):
+    """cli.train_cluster_classifier on the cars checkpoint, its rate, the
+    checkpoint loaded back, and one step on the card against the CPU path.
+    Returns the path of classifier.pt, the launches and the rate."""
+    cfg = state.cfg
+    results = os.path.join(d, "results")
+    zero_launches()
+    t0 = time.perf_counter()
+    classifier, metrics = cls_cli.main(cls_argv(results, ckpt, batch,
+                                                CLS_ITERS))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    print(f"cli.train_cluster_classifier: {CLS_ITERS} iterations at batch "
+          f"{batch} in {seconds:.1f} s, cross-entropy "
+          f"{float(metrics['cross_entropy']):.4f}, acc@1 "
+          f"{float(metrics['acc@1']):.3f}, labels' shares "
+          f"{[round(float(c), 3) for c in metrics['gt_counts']]}; launches "
+          f"{launches}")
+    check(launches["mipmap_sample"] == 2 * CLS_ITERS
+          and sum(launches.values()) == 2 * CLS_ITERS,
+          "expected 2 K1 launches per classifier step")
+    path = os.path.join(results, "cars_cls", "checkpoints", "classifier.pt")
+    model, mcfg, loaded = load_stn(path, supersize=256, device=dev,
+                                   load_classifier=True)
+    check(mcfg.num_heads == CARS_HEADS and loaded is not None
+          and loaded.cfg.num_heads == 2 * CARS_HEADS
+          and all(torch.equal(a, b) for a, b in zip(
+              loaded.state_dict().values(),
+              classifier.state_dict().values())),
+          "classifier.pt does not load back through load_stn")
+    print(f"classifier.pt loads back through load_stn(load_classifier=True):"
+          f" {mcfg.num_heads} heads, {loaded.cfg.num_heads} logits, "
+          f"weights equal")
+    trainer = ClassifierTrainer(cfg, classifier, generator, state.t_ema,
+                                state.ll, pfn)
+    rng = torch.Generator(dev).manual_seed(6)
+
+    def cls_step():
+        z = torch.randn(batch, cfg.g.style_dim, generator=rng, device=dev)
+        return trainer.step(z, 1e-3, rng=rng)
+
+    cls_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = timed_parts(lambda w: [cls_step()],
+                     lambda m: check(math.isfinite(float(
+                         m["cross_entropy"])), "a classifier step is not "
+                         "finite"))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    rate = batch * SUBWINDOWS / (sum(ms) / 1e3)
+    print(f"classifier trainer, batch {batch}: {rate:.2f} imgs/s over "
+          f"{SUBWINDOWS} steps in {sum(ms) / 1e3:.2f} s, peak memory of a "
+          f"step {peak:.2f} GiB [{card}]")
+
+    # one step on the card and on the CPU path, from copies, at batch 2
+    g = torch.Generator().manual_seed(12)
+    z = torch.randn(2, cfg.g.style_dim, generator=g)
+    noise = [[torch.randn(s, generator=g) for s in cfg.g.noise_shapes(b)]
+             for b in (2, 2 * CARS_HEADS)]
+    loss = make_perceptual_loss(cfg.loss_fn)
+    runs = []
+    for dv in (dev, torch.device("cpu")):
+        lp = copy.deepcopy(perceptual).to(dv)
+        tr = ClassifierTrainer(
+            dataclasses.replace(cfg, batch=2),
+            copy.deepcopy(classifier).to(dv), copy.deepcopy(generator).to(dv),
+            copy.deepcopy(state.t_ema).to(dv), copy.deepcopy(state.ll).to(dv),
+            lambda x, y, lp=lp: loss(lp, x, y))
+        runs.append(tr.step(z.to(dv), 1e-3,
+                            noise=[[n.to(dv) for n in ns] for ns in noise]))
+    xent = [float(r["cross_entropy"]) for r in runs]
+    labels = [r["labels"].cpu().tolist() for r in runs]
+    rel = abs(xent[0] - xent[1]) / abs(xent[1])
+    print(f"card vs CPU path, a classifier step at batch 2: labels "
+          f"{labels[0]} vs {labels[1]}; cross-entropy {xent[0]:.6f} vs "
+          f"{xent[1]:.6f} (relative {rel:.3e})")
+    check(labels[0] == labels[1], "the classifier's labels differ from the "
+          "CPU path")
+    check(rel <= 1e-4, "the classifier's cross-entropy differs from the CPU "
+          "path")
+    return path, launches, rate, peak
+
+
+def write_averages(d, n, size=256):
+    """Average congealed images of the clusters, ...cluster0.png to
+    ...cluster{n-1}.png, as smooth images."""
+    from PIL import Image
+    imgs = smooth_images(n, torch.Generator().manual_seed(14)).numpy()
+    for k, im in enumerate(imgs):
+        Image.fromarray(np.round((im + 1) * 127.5).astype(np.uint8)
+                        .transpose(1, 2, 0)).save(
+            os.path.join(d, f"avg_cluster{k}.png"))
+    return os.path.join(d, "avg_cluster0.png")
+
+
+def cluster_ar(dev, card, d, path):
+    """The AR apps with the cars STN and its classifier (each frame through
+    its one assigned head): frames/s at the eval batch, the
+    cluster-activity video, propagate_to_images with and without a
+    cluster, the kernels of a batch against their plain versions, and the
+    card against the CPU path on 2 frames. Returns the launches and the
+    errors."""
+    model, _, classifier = load_stn(path, supersize=256, device=dev,
+                                    load_classifier=True)
+    cpu_model, _, cpu_classifier = load_stn(path, supersize=256,
+                                            device="cpu",
+                                            load_classifier=True)
+    label, rgba = synthetic_label()
+    label_png = write_label(rgba, d)
+    average = write_averages(d, CARS_HEADS)
+    frames = smooth_images(AR_FRAMES, torch.Generator().manual_seed(13)) \
+        .numpy()
+    kw = dict(classifier=classifier)
+
+    zero_launches()
+    check_ar(ar_run(model, frames[:AR_BATCH], label, **kw), AR_BATCH)
+    seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        result = ar_run(model, frames, label, **kw)
+        seconds.append(time.perf_counter() - t0)
+        check_ar(result, AR_FRAMES)
+    rate = 2 * AR_FRAMES / sum(seconds)
+    t0 = time.perf_counter()
+    result = ar_run(model, frames[:AR_BATCH], label, average_path=average,
+                    out_dir=os.path.join(d, "mr"), **kw)
+    average_s = time.perf_counter() - t0
+    check_ar(result, AR_BATCH)
+    frames_avg = result["average_frames"]
+    check(len(frames_avg) == AR_BATCH and frames_avg[0].shape == (518, 518, 3)
+          and os.path.getsize(os.path.join(d, "mr", "average.mp4")) > 0,
+          "the cluster-activity video")
+    with recorded(mipmap_ops, "mipmap_sample") as k1, \
+            recorded(grid_sample_ops, "grid_sample_cuda") as k2, \
+            recorded(splat_ops, "splat2d_pair_cuda") as k6:
+        check_ar(ar_run(model, frames[:AR_BATCH], label, **kw), AR_BATCH)
+    check(len(k1) == 4 and len(k2) == 1 and len(k6) == 1,
+          f"an AR batch with the classifier launched K1 {len(k1)}, K2 "
+          f"{len(k2)}, K6 {len(k6)} times; expected 4, 1 and 1")
+    errs = ar_kernels_vs_plain(k1, k2, k6)
+    for cluster in (None, 1):
+        check_images(propagate_to_images(
+            model, frames[:AR_BATCH], label_path=label_png, sigma=AR_SIGMA,
+            opacity=1.0, batch=AR_BATCH, objects=True, classifier=classifier,
+            cluster=cluster), AR_BATCH)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    batches = 1 + 2 * AR_FRAMES // AR_BATCH + 2 + 2
+    # and K6 once for each cluster's average image of the video
+    check(launches["mipmap_sample"] == 4 * batches
+          and launches["grid_sample"] == batches
+          and launches["splat"] == batches + CARS_HEADS
+          and sum(launches.values()) == 6 * batches + CARS_HEADS,
+          f"the AR path with the classifier launched {launches}, expected "
+          "K1 4, K2 1 and K6 1 a batch and K6 once for each average image")
+    print(f"AR with the classifier: {rate:.1f} frames/s over "
+          f"{2 * AR_FRAMES} frames at batch {AR_BATCH} in "
+          f"{sum(seconds):.2f} s "
+          f"({', '.join(f'{AR_FRAMES / t:.1f}' for t in seconds)}); a batch with the cluster-activity video {average_s:.2f} s; "
+          f"{batches} batches, launches {launches}; K1, K2 and K6 of a batch "
+          f"against the plain versions: max abs err K1 "
+          f"{errs['mipmap_sample']:.3e}, K2 {errs['grid_sample']:.3e}, K6 "
+          f"{errs['splat']:.3e} [{card}]")
+
+    # 2 frames on the card and on the CPU path
+    x = frames[:2]
+    with torch.inference_mode():
+        logits = cpu_classifier(torch.from_numpy(x))
+        picks = [determine_flips(m, torch.from_numpy(x).to(
+            next(m.parameters()).device), classifier=c)
+            for m, c in ((model, classifier), (cpu_model, cpu_classifier))]
+    top = logits.sort(dim=1).values
+    gap = float(((top[:, -1] - top[:, -2]) / top[:, -1].abs()).min())
+    flips = [p[1].cpu().ravel().tolist() for p in picks]
+    clusters = [p[3].cpu().tolist() for p in picks]
+    got = ar_run(model, x, label, save_correspondences=True, **kw)
+    ref = ar_run(cpu_model, x, label, save_correspondences=True,
+                 classifier=cpu_classifier)
+    pt = float(np.abs(got["correspondences"] - ref["correspondences"]).max())
+    cong = float(np.abs(got["congealed"] - ref["congealed"]).max())
+    prop = np.abs(got["propagated"] - ref["propagated"])
+    print(f"card vs CPU path, AR with the classifier on 2 frames: clusters "
+          f"{clusters[0]} vs {clusters[1]}, flips {flips[0]} vs {flips[1]} "
+          f"(smallest relative gap of the top two logits {gap:.3e}); points "
+          f"{pt:.3e} px, congealed frames {cong:.3e}, propagated frames mean "
+          f"{prop.mean():.3e} max {prop.max():.3e}")
+    check(clusters[0] == clusters[1] and flips[0] == flips[1],
+          "AR with the classifier: the clusters or flips differ from the "
+          "CPU path")
+    check(pt <= AR_PT_TOL and cong <= OUT_TOL
+          and prop.mean() <= AR_PROP_MEAN_TOL,
+          "AR with the classifier differs from the CPU path")
+    for cluster in (None, 1):
+        got, ref = (propagate_to_images(
+            m, x, label_path=label_png, sigma=AR_SIGMA, opacity=1.0,
+            batch=AR_BATCH, objects=True, classifier=c, cluster=cluster)
+            for m, c in ((model, classifier), (cpu_model, cpu_classifier)))
+        cong = float(np.abs(got["congealed"] - ref["congealed"]).max())
+        prop = np.abs(got["propagated"] - ref["propagated"])
+        print(f"card vs CPU path, propagate_to_images with the classifier, "
+              f"cluster {cluster}, on 2 images: congealed {cong:.3e}, "
+              f"propagated mean {prop.mean():.3e} max {prop.max():.3e}")
+        check(cong <= OUT_TOL and prop.mean() <= AR_PROP_MEAN_TOL,
+              "propagate_to_images with the classifier differs from the CPU "
+              "path")
+    return launches, errs, rate
+
+
+def time_kmeans(generator, pfn, dev, card):
+    """One whole K-Means++ (4 centroids) at KMEANS_LATENTS latents."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centroids = kmeans_plusplus(generator, pfn, CARS_HEADS, KMEANS_LATENTS,
+                                torch.Generator(dev).manual_seed(15),
+                                inject_index=6)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(centroids.shape == (CARS_HEADS, 512)
+          and bool(torch.isfinite(centroids).all()), "kmeans++ centroids")
+    print(f"kmeans++: {CARS_HEADS} centroids from {KMEANS_LATENTS} latents "
+          f"(256 px, lpips) in {seconds:.2f} s [{card}]")
+    return seconds
+
+
+def cluster(dev, card):
+    """The cluster phase: the cars run, its classifier, the AR apps with
+    it. Returns the main path's launches (each part counted from zero just
+    before it), the kernels' errors and the figures of the report."""
+    start = time.perf_counter()
+    batch = CARS_BATCH
+    d = tempfile.mkdtemp()
+    (state, generator, perceptual, pfn, ckpt, train_launches, rate, peak,
+     errs, rows, ties) = cars_train(dev, card, d, batch)
+    path, cls_launches, cls_rate, cls_peak = classifier_phase(
+        dev, card, d, state, generator, perceptual, pfn, ckpt, CLS_BATCH)
+    kmeans_s = time_kmeans(generator, pfn, dev, card)
+    del state, perceptual
+    ar_launches, ar_errs, ar_rate = cluster_ar(dev, card, d, path)
+    for k, v in ar_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    launches = {k: train_launches[k] + cls_launches[k] + ar_launches[k]
+                for k in LAUNCHES}
+    shutil.rmtree(d)
+    print(f"cluster phase: {time.perf_counter() - start:.1f} s; cars "
+          f"{rate:.2f} imgs/s at batch {batch}, peak {peak:.2f} GiB; "
+          f"classifier {cls_rate:.2f} imgs/s at batch {CLS_BATCH}, peak "
+          f"{cls_peak:.2f} GiB; AR "
+          f"with the classifier {ar_rate:.1f} frames/s; kmeans++ "
+          f"{kmeans_s:.2f} s; near-tie assignments {ties}; launches "
+          f"{launches} [{card}]")
+    return launches, errs, rows, (rate, peak, cls_rate, cls_peak, ar_rate)
+
+
 def main():
     dev, card = setup()
     errs, times, bounds, library = kernels_vs_plain(dev)
@@ -2511,10 +3082,12 @@ def main():
     ar_rate, ar_peak, ar_launches, ar_check_launches, ar_errs, \
         splat_times, k2_ar = ar(dev, card)
     eval_launches, eval_errs = evaluate(dev, card)
+    cluster_launches, cluster_errs, cars_rows, cluster_rates = cluster(
+        dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
-                 + list(eval_errs.items())):
+                 + list(eval_errs.items()) + list(cluster_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -2526,6 +3099,17 @@ def main():
           f"of a step {train_peak:.2f} GiB [{card}]")
     print(f"AR batch {AR_BATCH}: {ar_rate:.1f} frames/s, peak memory of a "
           f"batch {ar_peak:.2f} GiB [{card}]")
+    cars_rate, cars_peak, cls_rate, cls_peak, cls_ar_rate = cluster_rates
+    print(f"cars step batch {CARS_BATCH}: {cars_rate:.2f} imgs/s, peak "
+          f"memory of a step {cars_peak:.2f} GiB; classifier trainer batch "
+          f"{CLS_BATCH}: {cls_rate:.2f} imgs/s, peak {cls_peak:.2f} GiB; AR "
+          f"with the classifier at batch {AR_BATCH}: {cls_ar_rate:.1f} "
+          f"frames/s [{card}]")
+    for name, row in cars_rows.items():
+        print(f"{name} at the cars step's shapes, per launch: kernel "
+              f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} "
+              f"ms ({row[3]}), F.grid_sample on the volume {row[4]:.4f} ms "
+              f"[{card}]")
     for name, (ms, plain_ms, call, plain_call) in times.items():
         print(f"{name} at the toy size N=8 C=3 256->128, device time: kernel "
               f"{ms:.4f} ms, "
@@ -2542,21 +3126,24 @@ def main():
     # K2 on the inputs of an AR batch, where most of its main-path
     # launches are
     measured["grid_sample"] = k2_ar
-    # "launches" counts the main path only: serve, cli.train, the AR apps
-    # and the eval apps, each run with every count zeroed just before it.
+    # "launches" counts the main path only: serve, cli.train, the AR apps,
+    # the eval apps and the cluster phase's cars run, classifier CLI and AR
+    # apps, each run with every count zeroed just before it.
     # The backward kernels of the antialias=False form and of an image that
     # needs a gradient run only in the side checks, which count under
     # "check_launches" with the K6 launches of composed_propagate_object's
     # check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
-                + eval_launches[k] for k in LAUNCHES}
+                + eval_launches[k] + cluster_launches[k] for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):
         check(launches[k] == 0 and check_launches[k] > 0,
               f"{k}: {launches[k]} launches on the main path, "
               f"{check_launches[k]} in its check; expected 0 and more")
-    for k, (ms, _, bound_ms, *_) in measured.items():
+    for k, (ms, _, bound_ms, *_) in list(measured.items()) + [
+            (f"{k} at the cars step's shapes", v)
+            for k, v in cars_rows.items()]:
         check(ms >= bound_ms, f"{k} took {ms:.4f} ms, under its bound of "
               f"{bound_ms:.4f} ms: a timing fault")
     print(f"torch.profiler: {WINDOWS['taken']} windows, "

@@ -8,14 +8,13 @@ import torch
 
 from gangealing_torch.io.from_jax import params_from_jax
 from gangealing_torch.io.torch_import import load_torch_checkpoint
+from gangealing_torch.models.classifier import (
+    Classifier, classifier_config, classifier_run_flip,
+    classifier_run_flip_target)
 from gangealing_torch.models.stn import (
     ComposedSTN, ComposedSTNConfig, composed_forward_with_flip)
 from gangealing_torch.utils.download import (
     PRETRAINED_TEST_HYPERPARAMS, find_model)
-
-CLUSTER_SLICE = ("clustering models (a cluster classifier, num_heads > 1) "
-                 "are not ported to gangealing_torch yet; they come with "
-                 "the cluster slice")
 
 
 def resolve_device(device) -> torch.device:
@@ -47,14 +46,17 @@ def stn_config_from_args(args: Mapping[str, Any], supersize=None):
     )
 
 
-def load_stn(ckpt_path, supersize=256, override=False, device="cuda"):
+def load_stn(ckpt_path, supersize=256, override=False, device="cuda",
+             load_classifier=False):
     """Load a reference-schema checkpoint's ``t_ema`` into a ComposedSTN.
 
     ``ckpt_path`` is a ``.pt`` path or a model-zoo name (e.g. 'cat'); for a
     zoo name the published test-time hyperparameters are merged into the
     stored args unless ``override`` (applications/__init__.py:36-39).
     Returns ``(model, cfg)``, the model in eval mode on ``device``, which
-    is the card unless the caller asks for the CPU.
+    is the card unless the caller asks for the CPU; with
+    ``load_classifier``, ``(model, cfg, classifier)``, the checkpoint's
+    cluster classifier in eval mode, or None when it has none.
     """
     resolved, is_zoo = find_model(ckpt_path)
     device = resolve_device(device)
@@ -65,17 +67,42 @@ def load_stn(ckpt_path, supersize=256, override=False, device="cuda"):
     cfg = stn_config_from_args(args, supersize=supersize)
     model = ComposedSTN(cfg, device=device)
     model.load_state_dict(params_from_jax(ckpt["t_ema"]), strict=True)
-    return model.eval(), cfg
+    if not load_classifier:
+        return model.eval(), cfg
+    classifier = None
+    if "classifier" in ckpt:
+        classifier = Classifier(classifier_config(cfg, supersize),
+                                device=device)
+        classifier.load_state_dict(params_from_jax(ckpt["classifier"]),
+                                   strict=True)
+        classifier.eval()
+    return model.eval(), cfg, classifier
 
 
 def determine_flips(model, imgs, classifier=None, cluster=None,
                     no_flip_inference=False, iters=1, padding_mode="border"):
     """Decide which inputs to mirror (applications/__init__.py:57-84).
     Returns (flipped_imgs, flip_indices (N, 1, 1, 1) bool, warp_policy,
-    clusters (N,) int)."""
+    clusters (N,) int).
+
+    With a cluster ``classifier`` the classifier decides: its predicted
+    class (cluster and flip) for each input, or with ``cluster`` only the
+    flip within that cluster; the warp policy is then the one-hot (N, K)
+    rows of the clusters, so each input runs through its own head."""
     N = imgs.shape[0]
     if classifier is not None:
-        raise NotImplementedError(CLUSTER_SLICE)
+        K = model.cfg.num_heads
+        if cluster is None:
+            flipped, _, classes, flip = classifier_run_flip(classifier, imgs)
+            clusters = classes % K
+        else:
+            flipped, flip = classifier_run_flip_target(classifier, imgs,
+                                                       cluster)
+            clusters = torch.full((N,), cluster, dtype=torch.long,
+                                  device=imgs.device)
+        warp_policy = torch.eye(K, dtype=imgs.dtype,
+                                device=imgs.device)[clusters]
+        return flipped, flip.reshape(N, 1, 1, 1), warp_policy, clusters
     zeros = torch.zeros((N,), dtype=torch.int32, device=imgs.device)
     if not no_flip_inference:
         _, flipped, flip = composed_forward_with_flip(

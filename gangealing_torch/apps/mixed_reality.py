@@ -14,8 +14,12 @@ Memory modes (reference :213-216, :239-243, :258-262):
     then assembles the mp4s from the files;
   * ``frames`` may be a (T, C, H, W) array or a list of image paths (a
     frame directory), loaded one batch at a time.
-The cluster-activity video (``average_path`` with a cluster classifier)
-comes with the cluster slice.
+A clustering model runs with its cluster classifier, which picks each
+frame's cluster and flip (or only the flip within ``cluster``); with
+``average_path`` it adds the cluster-activity video, average.mp4: each
+cluster's average congealed image with the label splatted on it, the
+frame's cluster bright and the others dimmed (reference :58-70, :120-128,
+:245-256).
 """
 
 import os
@@ -23,12 +27,15 @@ import os
 import numpy as np
 import torch
 
-from gangealing_torch.apps.common import CLUSTER_SLICE, determine_flips
+from gangealing_torch.apps.common import determine_flips
 from gangealing_torch.data.prepare import load_frame_paths, nchw_center_crop
 from gangealing_torch.models.stn import (
     composed_uncongeal_points, convert_points)
 from gangealing_torch.utils.vis import (
-    load_dense_label, save_video, splat_points)
+    get_colorscale, images2grid, load_dense_label, load_pil, save_video,
+    splat_points)
+
+_INACTIVE_ALPHA = 0.2  # the dimming of the inactive clusters (reference :86)
 
 
 def _save_frame_png(frame_chw, path):
@@ -36,6 +43,23 @@ def _save_frame_png(frame_chw, path):
     from PIL import Image
     arr = ((np.asarray(frame_chw) + 1.0) * 127.5).clip(0, 255)
     Image.fromarray(arr.transpose(1, 2, 0).astype(np.uint8)).save(path)
+
+
+def _labeled_average_images(average_path, num_heads, points, resolution,
+                            sigma, opacity):
+    """Each cluster's average congealed image with the label's points
+    splatted on it in the cluster's colorscale (reference
+    create_average_image_vis, :58-70). The images are named ...cluster0.png,
+    ...cluster1.png and so on; ``average_path`` names the first. Returns
+    (K, C, H, W) on the points' device."""
+    imgs = []
+    for k in range(num_heads):
+        avg = load_pil(average_path.replace("cluster0", f"cluster{k}"),
+                       resolution=resolution).to(points.device)
+        imgs.append(splat_points(avg, points.float(), sigma=sigma,
+                                 opacity=opacity,
+                                 colorscale=get_colorscale(k)))
+    return torch.cat(imgs, 0)
 
 
 def _batch_of(frames, lazy_paths, blk, device):
@@ -64,16 +88,17 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
     ``points``, ``colors``, ``alphas``: a dense label as
     ``load_dense_label`` returns it, in place of ``label_path``.
 
+    ``classifier``: the cluster classifier of a clustering model (or None);
+    ``cluster``: the one cluster to run every frame through.
+
     Returns a dict of numpy arrays: 'propagated' and 'congealed'
     (T, C, S, S), left out when ``save_frames`` (the frames go to disk),
-    and 'correspondences' (T, P, 2) when ``save_correspondences``. Writes
-    propagated.mp4 and congealed.mp4 (and correspondences.pt) when
-    ``out_dir`` is given."""
-    if classifier is not None or cluster is not None \
-            or model.cfg.num_heads > 1:
-        what = ("the cluster-activity video (average_path)"
-                if average_path is not None else "this model")
-        raise NotImplementedError(f"{what}: {CLUSTER_SLICE}")
+    and 'correspondences' (T, P, 2) when ``save_correspondences``; and
+    'average_frames', a list of (H, W, C) uint8 grids, with a classifier,
+    ``average_path`` and a label. Writes propagated.mp4 and congealed.mp4
+    (and correspondences.pt, average.mp4) when ``out_dir`` is given."""
+    if classifier is None and model.cfg.num_heads > 1:
+        raise ValueError("a clustering model needs its cluster classifier")
     device = next(model.parameters()).device
     lazy_paths = None
     if isinstance(frames, (list, tuple)) and frames and isinstance(
@@ -99,15 +124,24 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
         points, colors, alphas = (torch.as_tensor(t, device=device)
                                   for t in (points, colors, alphas))
 
-    propagated, congealed, correspondences = [], [], []
+    K = model.cfg.num_heads
+    averages = None
+    if classifier is not None and K > 1 and average_path is not None \
+            and points is not None:
+        averages = _labeled_average_images(average_path, K, points,
+                                           resolution, sigma, opacity)
+        inactive = averages * _INACTIVE_ALPHA - (1 - _INACTIVE_ALPHA)
+
+    propagated, congealed, correspondences, average_frames = [], [], [], []
     for s in range(0, T, batch):
         blk = list(range(s, min(s + batch, T)))
         fb = _batch_of(frames, lazy_paths, blk, device)
         n = fb.shape[0]
         S = fb.shape[-1]
         with torch.inference_mode():
-            flipped, flip_idx, warp_policy, _ = determine_flips(
-                model, fb, no_flip_inference=no_flip_inference, iters=iters,
+            flipped, flip_idx, warp_policy, clusters = determine_flips(
+                model, fb, classifier=classifier, cluster=cluster,
+                no_flip_inference=no_flip_inference, iters=iters,
                 padding_mode=padding_mode)
             if objects and points is not None:
                 prop_pts = composed_uncongeal_points(
@@ -134,7 +168,8 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
                 if save_correspondences:
                     correspondences.append(prop_pts.cpu().numpy())
             cong, _, _, _, _ = model(flipped, output_resolution=S,
-                                     iters=iters, padding_mode=padding_mode)
+                                     iters=iters, padding_mode=padding_mode,
+                                     warp_policy=warp_policy)
             if overlay_congealed and points is not None:
                 # the input label on the congealed frames
                 # (reference mixed_reality.py:245-252)
@@ -152,6 +187,16 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
                     out_dir, "congealing_frames", f"{blk[j]}.png"))
         else:
             congealed.append(cong)
+        if averages is not None:
+            # the cluster-activity frames: the frame's cluster highlighted
+            active = torch.eye(K, dtype=torch.bool,
+                               device=device)[clusters]
+            for j in range(n):
+                current = torch.where(active[j].reshape(-1, 1, 1, 1),
+                                      averages, inactive)
+                average_frames.append(images2grid(
+                    current, normalize=True, range=(-1, 1), pad_value=-1.0,
+                    nrow=max(1, int(np.ceil(K ** 0.5)))))
 
     result = {}
     if not save_frames:
@@ -162,6 +207,11 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
         result["correspondences"] = np.concatenate(correspondences, 0)
     if out_dir is not None:
         _write_videos(result, out_dir, T, fps, save_frames)
+        if average_frames:
+            save_video(average_frames, fps,
+                       os.path.join(out_dir, "average.mp4"))
+    if average_frames:
+        result["average_frames"] = average_frames
     return result
 
 

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import torch
 
-from gangealing_torch.apps.common import CLUSTER_SLICE, determine_flips
+from gangealing_torch.apps.common import determine_flips
 from gangealing_torch.models.stn import (
     composed_uncongeal_points, convert_points)
 from gangealing_torch.utils.vis import (
@@ -58,10 +58,11 @@ def propagate_to_images(model, images, label_path=None, sigma=1.2,
     (propagate_to_images.py make_visuals). ``output_resolution``: the size
     of the congealed outputs (default: the input size). ``average_n``: the
     number of leading images averaged into 'average_congealed' (reference
-    --n_mean); 0 skips the average."""
-    if classifier is not None or cluster is not None \
-            or model.cfg.num_heads > 1:
-        raise NotImplementedError(CLUSTER_SLICE)
+    --n_mean); 0 skips the average. ``classifier``: the cluster classifier
+    of a clustering model, which picks each image's cluster and flip, or
+    only the flip within ``cluster``."""
+    if classifier is None and model.cfg.num_heads > 1:
+        raise ValueError("a clustering model needs its cluster classifier")
     device = next(model.parameters()).device
     images = torch.as_tensor(images)
     N, C, S, _ = images.shape
@@ -80,10 +81,12 @@ def propagate_to_images(model, images, label_path=None, sigma=1.2,
         n = xb.shape[0]
         with torch.inference_mode():
             flipped, flip_idx, warp_policy, _ = determine_flips(
-                model, xb, no_flip_inference=no_flip_inference, iters=iters,
+                model, xb, classifier=classifier, cluster=cluster,
+                no_flip_inference=no_flip_inference, iters=iters,
                 padding_mode=padding_mode)
             cong, _, _, _, _ = model(flipped, output_resolution=out_res,
-                                     iters=iters, padding_mode=padding_mode)
+                                     iters=iters, padding_mode=padding_mode,
+                                     warp_policy=warp_policy)
             congealed.append(cong.cpu().numpy())
             if points is None:
                 continue

@@ -5,7 +5,7 @@ utils/base_argparse.py:4-60 for the training flags,
 applications/__init__.py:7-27 for the eval flags). Flag names and defaults
 are the JAX package's, so launch scripts carry over unchanged; the port's
 CLIs refuse the flags of what they do not run yet, naming the slice that
-brings it.
+brings it, and what the JAX CLIs refuse, for the JAX CLIs' reason.
 """
 
 import argparse
@@ -116,8 +116,6 @@ def base_eval_argparse():
 
 MULTI_GPU = ("--num_devices > 1 is not ported to gangealing_torch yet; it "
              "comes with the multi-GPU slice")
-CLUSTERS = ("--num_heads > 1 (clustering models) is not ported to "
-            "gangealing_torch yet; it comes with the cluster slice")
 
 
 def add_device(parser):
@@ -128,9 +126,12 @@ def add_device(parser):
     return parser
 
 
-def refuse_later_slices(parser, args):
-    """Refuse an eval CLI's flags of what the port does not run yet."""
+def refuse_later_slices(parser, args, unclustered=None):
+    """Refuse an eval CLI's flags of what the port does not run yet; with
+    ``unclustered``, the name of an app that takes no clustering model,
+    refuse ``--num_heads`` other than 1 as the JAX CLI of that app does
+    (gangealing_tpu/cli/flow_scores.py:8, cli/congeal_dataset.py:14)."""
     if args.num_devices is not None and args.num_devices > 1:
         parser.error(MULTI_GPU)
-    if args.num_heads != 1:
-        parser.error(CLUSTERS)
+    if unclustered is not None and args.num_heads != 1:
+        parser.error(f"clustering not supported for {unclustered}")

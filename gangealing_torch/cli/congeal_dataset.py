@@ -7,7 +7,8 @@ applications/congeal_dataset.py).
 
 The flags are the JAX package's and ``--device``, default ``cuda``: the
 run raises when no card is visible. ``--num_devices`` above 1 comes with
-the multi-GPU slice, clustering models with the cluster slice.
+the multi-GPU slice; ``--num_heads`` other than 1 is refused, as the JAX
+CLI refuses it.
 """
 
 from gangealing_torch.cli.args import (
@@ -28,7 +29,7 @@ def main(argv=None):
     """Align and filter the dataset; returns the retained indices."""
     parser = congeal_dataset_argparse()
     args = parser.parse_args(argv)
-    refuse_later_slices(parser, args)
+    refuse_later_slices(parser, args, unclustered="congealing")
 
     from gangealing_torch.apps.common import load_stn
     from gangealing_torch.apps.congeal_dataset import align_and_filter_dataset

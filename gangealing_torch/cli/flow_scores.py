@@ -6,8 +6,8 @@ reference applications/flow_scores.py).
 
 The flags are the JAX package's ``base_eval_argparse`` and ``--device``,
 default ``cuda``: the run raises when no card is visible. ``--num_devices``
-above 1 comes with the multi-GPU slice, clustering models with the
-cluster slice.
+above 1 comes with the multi-GPU slice; ``--num_heads`` other than 1 is
+refused, as the JAX CLI refuses it.
 """
 
 from gangealing_torch.cli.args import (
@@ -22,7 +22,7 @@ def main(argv=None):
     """Score the dataset and cache flow_scores.pt; returns the scores."""
     parser = flow_scores_argparse()
     args = parser.parse_args(argv)
-    refuse_later_slices(parser, args)
+    refuse_later_slices(parser, args, unclustered="flow_scores")
     from gangealing_torch.apps.common import load_stn
     from gangealing_torch.apps.flow_scores import compute_flow_scores
 

@@ -7,9 +7,9 @@ applications/mixed_reality.py).
 
 The flags are the JAX package's (``base_eval_argparse`` plus the app's
 own) and ``--device``, default ``cuda``: the run raises when no card is
-visible. ``--num_devices`` above 1 comes with the multi-GPU slice, a
-clustering model (``--num_heads`` above 1) and ``--average_path`` with the
-cluster slice.
+visible. A clustering model runs with the cluster classifier its
+checkpoint holds (``--cluster``, ``--average_path``). ``--num_devices``
+above 1 comes with the multi-GPU slice.
 """
 
 import os
@@ -58,8 +58,9 @@ def main(argv=None):
     from gangealing_torch.data.prepare import (
         list_frame_paths, load_video_frames)
 
-    model, _ = load_stn(args.ckpt, supersize=args.real_size,
-                        override=args.override, device=args.device)
+    model, _, classifier = load_stn(
+        args.ckpt, supersize=args.real_size, override=args.override,
+        device=args.device, load_classifier=True)
     if args.save_frames and os.path.isdir(args.video_path):
         # a lazy path list: frames load one batch at a time
         frames = list_frame_paths(args.video_path)
@@ -72,7 +73,8 @@ def main(argv=None):
         model, frames, label_path=args.label_path, sigma=args.sigma,
         opacity=args.opacity, blend_alg=args.blend_alg, iters=args.iters,
         padding_mode=args.padding_mode, batch=args.batch,
-        cluster=args.cluster, no_flip_inference=args.no_flip_inference,
+        classifier=classifier, cluster=args.cluster,
+        no_flip_inference=args.no_flip_inference,
         out_dir=args.out, fps=args.fps,
         objects=args.objects or args.label_path is not None,
         save_correspondences=args.save_correspondences,

@@ -6,7 +6,8 @@ reference applications/pck.py).
 
 The flags are the JAX package's and ``--device``, default ``cuda``: the
 run raises when no card is visible. ``--num_devices`` above 1 comes with
-the multi-GPU slice, clustering models with the cluster slice.
+the multi-GPU slice. As in the JAX CLI, ``--num_heads`` is not read: the
+checkpoint's own arguments give the STN.
 """
 
 import numpy as np

@@ -6,9 +6,9 @@ applications/propagate_to_images.py, flags :108-138).
         --real_data_path data/cats --label_path label.png --objects
 
 The flags are the JAX package's and ``--device``, default ``cuda``: the
-run raises when no card is visible. ``--num_devices`` above 1 comes with
-the multi-GPU slice, clustering models and ``--cluster`` with the cluster
-slice.
+run raises when no card is visible. A clustering model runs with the
+cluster classifier its checkpoint holds (``--cluster``). ``--num_devices``
+above 1 comes with the multi-GPU slice.
 """
 
 import os
@@ -73,8 +73,9 @@ def main(argv=None):
         annotate_average, propagate_to_images)
     from gangealing_torch.data.dataset import MultiResolutionDataset
 
-    model, _ = load_stn(args.ckpt, supersize=args.real_size,
-                        override=args.override, device=args.device)
+    model, _, classifier = load_stn(
+        args.ckpt, supersize=args.real_size, override=args.override,
+        device=args.device, load_classifier=True)
     dset = MultiResolutionDataset(args.real_data_path,
                                   resolution=args.real_size)
     if args.flow_scores is not None:
@@ -88,7 +89,7 @@ def main(argv=None):
         model, imgs, label_path=args.label_path, sigma=args.sigma,
         opacity=args.opacity, blend_alg=args.blend_alg, iters=args.iters,
         padding_mode=args.padding_mode, batch=args.batch,
-        cluster=args.cluster, objects=args.objects,
+        classifier=classifier, cluster=args.cluster, objects=args.objects,
         no_flip_inference=args.no_flip_inference, out_dir=args.out,
         resolution=args.resolution,
         output_resolution=args.output_resolution,

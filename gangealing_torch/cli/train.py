@@ -6,10 +6,12 @@
 The flags are the JAX package's (``base_training_argparse``, the port's
 copy in cli/args.py) plus ``--device``, default ``cuda``: the run raises
 when no card is visible, and ``--device cpu`` runs it on the CPU.
-``--batch`` is the batch of the one device. What later slices
-port is refused with a message that names the slice: the clustered loss
-(``--num_heads > 1``, ``--flips``), visuals (``--vis_every > 0``), bfloat16,
-an explicit ``--scan_k > 1`` and ``--profile_dir``.
+``--batch`` is the batch of the one device. ``--num_heads K`` and
+``--flips`` train a clustering model (scripts/training/lsun_cars.sh); its
+cold start picks the K centroids by K-Means++, or takes the first K
+latents of the PCA pool with ``--debug``. What later slices port is
+refused with a message that names the slice: visuals (``--vis_every >
+0``), bfloat16, an explicit ``--scan_k > 1`` and ``--profile_dir``.
 """
 
 import os
@@ -33,9 +35,6 @@ from gangealing_torch.utils.download import find_model
 
 def check_supported(parser, args):
     deferred = [
-        (args.num_heads > 1, "--num_heads > 1 (the clustered loss)",
-         "the cluster slice"),
-        (args.flips, "--flips (the clustered loss)", "the cluster slice"),
         (args.vis_every > 0, "--vis_every > 0 (training visuals)",
          "the visuals slice; pass --vis_every 0"),
         (args.compute_dtype == "bfloat16", "--compute_dtype bfloat16",
@@ -119,6 +118,7 @@ def main(argv=None):
     parser = training_argparse()
     args = parser.parse_args(argv)
     check_supported(parser, args)
+    args.vis_batch_size //= args.num_heads
     device = resolve_device(args.device)
     results_path = os.path.join(args.results, args.exp_name)
     os.makedirs(results_path, exist_ok=True)
@@ -149,10 +149,10 @@ def main(argv=None):
         resume(state, ckpt)
         start_iter = parse_start_iter(ckpt_path)
     else:
-        print("Only G_EMA loaded; running the PCA cold start")
+        print("Only G_EMA loaded; running the PCA/kmeans++ cold start")
         cold_start_ll(ll, generator,
                       torch.Generator(device).manual_seed(args.seed * 8 + 3),
-                      debug=args.debug)
+                      debug=args.debug, perceptual_fn=perceptual_fn)
     if args.real_data_path is not None:
         print("note: --real_data_path feeds the training visuals only, "
               "which are not ported yet")

@@ -46,6 +46,10 @@ class LatentLearner(nn.Module):
         self.directions.copy_(components)
         self.lat_mean.copy_(mean)
 
+    @torch.no_grad()
+    def assign_coefficients(self, coefficients):
+        self.coefficients.copy_(coefficients)
+
 
 def latent_learner_interpolate(ll: LatentLearner, styled_latent, psi):
     """styled_latent: (N, style_dim) W. Returns (N*K, n_latent, style_dim) W+
@@ -78,3 +82,10 @@ def fit_pca(w, n_components):
     idx = comps.abs().argmax(dim=1)
     signs = torch.sign(comps.gather(1, idx[:, None]))
     return (comps * signs).float(), mean.float()
+
+
+def pca_encode(x, components, mean):
+    """The PCA coefficients of the rows of ``x``: (x - mean) @ components.T,
+    the JAX package's ``PCA.encode`` (IncrementalPCA.transform, no
+    whitening)."""
+    return (x - mean) @ components.T

@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from gangealing_torch.models.classifier import classifier_run_flip_target
 from gangealing_torch.models.layers import (
     ConvLayer, EqualConv2d, EqualLinear, ResBlock)
 from gangealing_torch.ops.flow import total_variation_loss
@@ -734,7 +735,7 @@ def composed_match_flows(model, imgA, imgB, pointsA, pointsB=None,
 def composed_propagate_object(model, congealed_object_points,
                               congealed_object_values, congealed_mask_values,
                               target_image, sigma, classifier=None,
-                              max_sigma=8.0, **uncongeal_kwargs):
+                              cluster=None, max_sigma=8.0, **uncongeal_kwargs):
     """Propagate a congealed-space RGBA object onto the target images by
     uncongealing its points and splatting them
     (spatial_transformer.py:297-366). Returns (object image (N, C, H, W),
@@ -745,14 +746,27 @@ def composed_propagate_object(model, congealed_object_points,
     which the splat skips. On the card the object and the mask are one K6
     launch, which walks each point's exact window; ``max_sigma`` bounds
     the plain splat's window.
+
+    A clustering model (num_heads > 1) needs its cluster ``classifier``
+    and the object's ``cluster``: every target goes through that cluster's
+    head, and where the classifier's flip within the cluster says so, the
+    splatted object and mask are mirrored, as the JAX package does.
     """
-    if model.cfg.num_heads != 1 or classifier is not None:
-        raise NotImplementedError(
-            "composed_propagate_object with a cluster classifier "
-            "(num_heads > 1) comes with the cluster slice")
+    N = target_image.shape[0]
     supersize = target_image.shape[-1]
     if target_image.shape[-2] != supersize:
         raise ValueError("square inputs only")
+    flip = None
+    if model.cfg.num_heads > 1:
+        if classifier is None or cluster is None:
+            raise ValueError("a clustering model needs its cluster "
+                             "classifier and the object's cluster")
+        _, flip = classifier_run_flip_target(classifier, target_image,
+                                             cluster)
+        flip = flip.reshape(N, 1, 1, 1)
+        uncongeal_kwargs["warp_policy"] = torch.eye(
+            model.cfg.num_heads, dtype=target_image.dtype,
+            device=target_image.device)[[cluster] * N]
     propagated = composed_uncongeal_points(
         model, target_image, congealed_object_points,
         normalize_input_points=False, unnormalize_output_points=True,
@@ -763,6 +777,11 @@ def composed_propagate_object(model, congealed_object_points,
     propagated = torch.where(visible[..., None], propagated,
                              torch.full_like(propagated, -1e6))
     dtype = target_image.dtype
-    return splat2d_pair_auto(propagated, congealed_object_values.to(dtype),
-                             congealed_mask_values.to(dtype), sigma,
-                             supersize, supersize, max_sigma=max_sigma)
+    obj, mask = splat2d_pair_auto(propagated,
+                                  congealed_object_values.to(dtype),
+                                  congealed_mask_values.to(dtype), sigma,
+                                  supersize, supersize, max_sigma=max_sigma)
+    if flip is not None:
+        obj = torch.where(flip, obj.flip(3), obj)
+        mask = torch.where(flip, mask.flip(3), mask)
+    return obj, mask

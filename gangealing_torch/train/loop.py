@@ -6,7 +6,8 @@ the learning rates from train/annealing.py, z and the
 generator's noise from a generator seeded by the iteration, one train step,
 scalars into ``scalars.jsonl``, checkpoints every ``ckpt_every`` iterations
 and at every zero of the learning rate. The cold start fits the latent
-learner's PCA on a pool of W latents kept on the device.
+learner's PCA on a pool of W latents kept on the device, and with K heads
+its coefficients on K-Means++ centroids.
 """
 
 import json
@@ -15,13 +16,15 @@ import time
 
 import torch
 
-from gangealing_torch.models.latent_learner import fit_pca
+from gangealing_torch.models.latent_learner import fit_pca, pca_encode
 from gangealing_torch.train.checkpoint import save_checkpoint
+from gangealing_torch.train.clustering import kmeans_plusplus
 from gangealing_torch.train.state import TrainState, train_step
 from gangealing_torch.train.annealing import (
     lr_cycle_iters, lr_used_at_iter, psi_at_iter)
 
 PCA_CHUNK = 10000  # W latents made per generator call of the cold start
+KMEANS_LATENTS = 50000  # the K-Means++ pool of the cold start (train.py)
 
 
 class ScalarWriter:
@@ -49,18 +52,31 @@ def iteration_rng(seed, i, device):
 
 
 @torch.no_grad()
-def cold_start_ll(ll, generator, rng, debug=False):
+def cold_start_ll(ll, generator, rng, debug=False, perceptual_fn=None):
     """Fit the latent learner's directions and mean by PCA of a pool of W
     latents, 1M of them (1000 with ``debug``), made and kept on the
-    generator's device (train.py:228-243)."""
+    generator's device (train.py:228-243). With K > 1 heads, the
+    coefficients are the PCA codes of K centroids: K-Means++ over
+    KMEANS_LATENTS latents under ``perceptual_fn``, or the pool's first K
+    latents with ``debug``."""
     n_pca = 1000 if debug else 1000000
     ws = torch.cat([generator.batch_latent(min(PCA_CHUNK, n_pca - i), rng)
                     for i in range(0, n_pca, PCA_CHUNK)])
-    ll.assign_pca(*fit_pca(ws, ll.cfg.n_comps))
+    components, mean = fit_pca(ws, ll.cfg.n_comps)
+    ll.assign_pca(components, mean)
+    K = ll.cfg.num_heads
+    if K > 1:
+        if debug:
+            centroids = ws[:K]
+        else:
+            centroids = kmeans_plusplus(
+                generator, perceptual_fn, K, KMEANS_LATENTS, rng,
+                inject_index=ll.cfg.inject_index)
+        ll.assign_coefficients(pca_encode(centroids, components, mean))
 
 
 def _log(writer, i, metrics, psi, lr_t, lr_ll):
-    m = {k: float(v) for k, v in metrics.items()}
+    m = {k: float(metrics[k]) for k in ("p", "tv", "f")}
     writer.add_scalar("Loss/Reconstruction", m["p"], i)
     writer.add_scalar("Loss/TotalVariation", m["tv"], i)
     writer.add_scalar("Loss/FlowIdentity", m["f"], i)

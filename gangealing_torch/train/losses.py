@@ -2,9 +2,10 @@
 unimodal perceptual reconstruction loss.
 
 Port of gangealing_tpu/train/losses.py (reference models/losses/loss.py:
-21-29, 64-75). The clustered loss comes with the cluster slice. Fresh noise
-for each generator pass is drawn from ``rng`` (loss.py:66-68), unless
-``noise`` gives both passes' noise.
+21-92): the pair sampling, the unimodal loss and the clustered one. Fresh
+noise for each generator pass is drawn from ``rng`` (loss.py:66-68),
+unless ``noise`` gives both passes' noise (the second pass runs at N*K
+images when the latent learner has K heads).
 """
 
 import torch
@@ -35,6 +36,14 @@ def sample_gan_supervised_pairs(generator, ll, z, psi, flow_size,
     return unaligned, resize_fake2stn(aligned, generator.cfg.size, flow_size)
 
 
+def _pairs(generator, stn, ll, z, psi, freeze_ll, noise, rng, pair_sampler):
+    if pair_sampler is None:
+        return sample_gan_supervised_pairs(
+            generator, ll, z, psi, stn.cfg.flow_size, freeze_ll=freeze_ll,
+            noise=noise, rng=rng)
+    return pair_sampler(ll, z, psi)
+
+
 def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
                     freeze_ll=False, sample_from_full_res=False,
                     padding_mode="border", noise=None, rng=None,
@@ -45,13 +54,9 @@ def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
     ``perceptual_fn(x, y)`` -> (N, 1, 1, 1). ``pair_sampler``: an optional
     replacement for the GAN pair source, mapping (ll, z, psi) to
     (unaligned, target at flow_size)."""
+    unaligned, target = _pairs(generator, stn, ll, z, psi, freeze_ll, noise,
+                               rng, pair_sampler)
     flow_size = stn.cfg.flow_size
-    if pair_sampler is None:
-        unaligned, target = sample_gan_supervised_pairs(
-            generator, ll, z, psi, flow_size, freeze_ll=freeze_ll,
-            noise=noise, rng=rng)
-    else:
-        unaligned, target = pair_sampler(ll, z, psi)
     gen_size = generator.cfg.size if generator is not None else flow_size
     resized = resize_fake2stn(unaligned, gen_size, flow_size)
     pred, _, delta_flow, _, _ = stn(
@@ -59,3 +64,66 @@ def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
         input_img_for_sampling=unaligned if sample_from_full_res else None,
         output_resolution=flow_size if sample_from_full_res else None)
     return perceptual_fn(pred, target).mean(), delta_flow
+
+
+def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
+                                   num_heads, flips, freeze_ll=False,
+                                   sample_from_full_res=True,
+                                   padding_mode="border", noise=None,
+                                   rng=None, pair_sampler=None):
+    """Congeal the fakes with every head, and with ``flips`` their mirrors
+    too, and take the head of least perceptual distance to its target
+    (loss.py:32-61). Returns (min distances (N,), their indices (N,) into
+    the 2K (flips) or K columns, aligned predictions, delta_flow,
+    unaligned, resized unaligned, distances (N, 2K or K)).
+
+    The latent learner emits K targets a sample, k fastest, the STN's
+    cartesian layout; under flips the mirrors follow the fakes on the
+    batch axis and the targets repeat, so the distances come out as
+    (2, N, K) and column f*K + k of a row is head k on flip f."""
+    unaligned, target = _pairs(generator, stn, ll, z, psi, freeze_ll, noise,
+                               rng, pair_sampler)
+    batch = unaligned.shape[0]
+    if flips:
+        unaligned = torch.cat([unaligned, unaligned.flip(3)], 0)
+        target = target.repeat(2, 1, 1, 1)
+    flow_size = stn.cfg.flow_size
+    gen_size = generator.cfg.size if generator is not None else flow_size
+    resized = resize_fake2stn(unaligned, gen_size, flow_size)
+    pred, _, delta_flow, _, _ = stn(
+        resized, padding_mode=padding_mode,
+        input_img_for_sampling=unaligned if sample_from_full_res else None,
+        output_resolution=flow_size if sample_from_full_res else None)
+    ploss = perceptual_fn(pred, target)
+    if flips:
+        distances = ploss.reshape(2, batch, num_heads).transpose(0, 1) \
+            .reshape(batch, 2 * num_heads)
+    else:
+        distances = ploss.reshape(batch, num_heads)
+    min_idx = distances.argmin(dim=1)
+    min_val = distances.gather(1, min_idx[:, None])[:, 0]
+    return min_val, min_idx, pred, delta_flow, unaligned, resized, distances
+
+
+def gangealing_cluster_loss(generator, stn, ll, perceptual_fn, z, psi,
+                            num_heads, flips, freeze_ll=False,
+                            sample_from_full_res=True, padding_mode="border",
+                            noise=None, rng=None, pair_sampler=None):
+    """The clustered loss (loss.py:78-92): the mean of each fake's least
+    distance, and the residual flow of the head (and flip) it went to,
+    which alone the flow regularisers see. Returns (loss, assigned
+    delta_flow (N, H, W, 2), assignments (N,))."""
+    min_val, min_idx, _, delta_flow, _, _, _ = assign_fake_images_to_clusters(
+        generator, stn, ll, perceptual_fn, z, psi, num_heads, flips,
+        freeze_ll=freeze_ll, sample_from_full_res=sample_from_full_res,
+        padding_mode=padding_mode, noise=noise, rng=rng,
+        pair_sampler=pair_sampler)
+    batch = min_idx.shape[0]
+    hw2 = delta_flow.shape[1:]
+    if flips:
+        df = delta_flow.reshape(2, batch, num_heads, *hw2).transpose(0, 1) \
+            .reshape(batch, 2 * num_heads, *hw2)
+    else:
+        df = delta_flow.reshape(batch, num_heads, *hw2)
+    assigned = df[torch.arange(batch, device=df.device), min_idx]
+    return min_val.mean(), assigned, min_idx

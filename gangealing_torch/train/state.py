@@ -20,7 +20,8 @@ from gangealing_torch.models.latent_learner import (
 from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
 from gangealing_torch.models.stylegan2 import GeneratorConfig
 from gangealing_torch.ops.flow import flow_identity_loss, total_variation_loss
-from gangealing_torch.train.losses import gangealing_loss
+from gangealing_torch.train.losses import (
+    gangealing_cluster_loss, gangealing_loss)
 from gangealing_torch.io.torch_import import learnable_key_order
 
 EMA_ACCUM = 0.5 ** (32 / (10 * 1000))  # train.py:77
@@ -75,7 +76,7 @@ class TrainState:
             e.mul_(EMA_ACCUM).add_(p, alpha=1.0 - EMA_ACCUM)
 
 
-def _set_lr(optim, lr):
+def set_lr(optim, lr):
     for group in optim.param_groups:
         group["lr"] = float(lr)
 
@@ -84,19 +85,26 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
                lr_ll, noise=None, rng=None):
     """One GANgealing iteration. ``perceptual_fn(x, y)`` -> (N, 1, 1, 1);
     the generator is frozen. Returns the loss terms {"p", "tv", "f"} as
-    detached device scalars (reading them synchronises)."""
+    detached device scalars (reading them synchronises) and, for a
+    clustering model (``num_heads > 1`` or ``flips``, loss.py:78-92),
+    "assignments": each fake's head (and flip) index, whose residual flow
+    alone the TV and flow-identity terms see."""
     cfg = state.cfg
-    if cfg.t.num_heads > 1 or cfg.flips:
-        raise NotImplementedError("the clustered loss is not ported yet")
-    _set_lr(state.t_optim, lr_t)
-    _set_lr(state.ll_optim, lr_ll)
+    set_lr(state.t_optim, lr_t)
+    set_lr(state.ll_optim, lr_ll)
     state.t_optim.zero_grad(set_to_none=True)
     state.ll_optim.zero_grad(set_to_none=True)
-    ploss, delta_flow = gangealing_loss(
-        generator, state.t, state.ll, perceptual_fn, z, psi,
-        freeze_ll=cfg.freeze_ll,
-        sample_from_full_res=cfg.sample_from_full_res,
-        padding_mode=cfg.padding_mode, noise=noise, rng=rng)
+    kw = dict(freeze_ll=cfg.freeze_ll,
+              sample_from_full_res=cfg.sample_from_full_res,
+              padding_mode=cfg.padding_mode, noise=noise, rng=rng)
+    out = {}
+    if cfg.t.num_heads > 1 or cfg.flips:
+        ploss, delta_flow, out["assignments"] = gangealing_cluster_loss(
+            generator, state.t, state.ll, perceptual_fn, z, psi,
+            cfg.t.num_heads, cfg.flips, **kw)
+    else:
+        ploss, delta_flow = gangealing_loss(
+            generator, state.t, state.ll, perceptual_fn, z, psi, **kw)
     zero = torch.zeros((), device=ploss.device)
     tv = total_variation_loss(delta_flow) if cfg.tv_weight > 0 else zero
     fid = flow_identity_loss(delta_flow) if cfg.flow_identity_weight > 0 \
@@ -107,4 +115,4 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     if not cfg.freeze_ll:
         state.ll_optim.step()
     state.ema_update()
-    return {"p": ploss.detach(), "tv": tv.detach(), "f": fid.detach()}
+    return {"p": ploss.detach(), "tv": tv.detach(), "f": fid.detach(), **out}

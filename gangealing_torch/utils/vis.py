@@ -6,8 +6,9 @@ splat_points:135-194, load_dense_label:79-122, images2grid:39-43,
 save_video:55-75, colorscale sampling:125-131, batch_overlay:197-283).
 Images are torch tensors in [-1, 1] on any device; grids, file writing and
 label loading go through numpy on the host. Plotly colorscales are
-matplotlib colormaps of the same names; video goes through cv2.
-matplotlib, PIL and cv2 are imported inside the functions that need them.
+matplotlib colormaps of the same names, read from a copy of matplotlib's
+tables; video goes through cv2. PIL and cv2 are imported inside the
+functions that need them.
 """
 
 import math
@@ -21,7 +22,7 @@ from gangealing_torch.ops.splat import splat2d_pair_auto
 from gangealing_torch.utils.laplacian import BLEND_CONFIGS, laplacian_blend
 
 CLUSTER_COLORSCALES = ["plasma", "plotly3", "viridis", "cividis"]
-_MPL_FALLBACKS = {"plotly3": "magma", "turbo": "turbo"}
+_MPL_FALLBACKS = {"plotly3": "magma"}
 
 
 def _numpy(x):
@@ -36,14 +37,24 @@ def get_colorscale(cluster=None):
     return CLUSTER_COLORSCALES[cluster]
 
 
+# matplotlib's 256-entry lookup tables of 'turbo' and the cluster
+# colorscales, as float32 RGB (tests/test_torch_port_copies.py holds them
+# equal to matplotlib's), so that the apps' splats need no matplotlib.
+_COLORMAPS = os.path.join(os.path.dirname(__file__), "colormaps.npz")
+
+
 def get_colors(num_points, colorscale="turbo"):
-    """(1, P, 3) colors in [-1, 1] sampled along a colormap."""
-    import matplotlib
+    """(1, P, 3) colors in [-1, 1] sampled along a colormap as matplotlib
+    samples it: entry floor(256 x) of its table at P even steps x. Raises
+    KeyError for a colorscale that has no table here."""
     name = _MPL_FALLBACKS.get(colorscale, colorscale)
-    cmap = matplotlib.colormaps[name]
-    steps = np.linspace(0, 1, num_points)
-    rgb = np.asarray(cmap(steps))[:, :3].astype(np.float32)  # [0, 1]
-    return torch.from_numpy(rgb * 2.0 - 1.0)[None]
+    idx = np.minimum((np.linspace(0, 1, num_points) * 256).astype(int), 255)
+    with np.load(_COLORMAPS) as tables:
+        if name not in tables.files:
+            raise KeyError(f"no colormap table for {colorscale!r}; the "
+                           f"tables hold {sorted(tables.files)}")
+        rgb = tables[name][idx]
+    return torch.from_numpy(rgb.astype(np.float32) * 2.0 - 1.0)[None]
 
 
 def normalize_images(images, amin=None, amax=None):
@@ -202,30 +213,6 @@ def splat_points(images, points, sigma, opacity, colorscale="turbo",
     raise NotImplementedError(blend_alg)
 
 
-# matplotlib's 'turbo' at 33 evenly spaced steps, as 8-bit RGB: the marker
-# colours of batch_overlay, linearly interpolated (within 0.024 of the
-# colormap), so that the overlay needs no matplotlib.
-_TURBO_STEPS = np.array([
-    (48, 18, 59), (57, 42, 115), (64, 64, 162), (68, 86, 199),
-    (70, 107, 227), (70, 128, 246), (66, 148, 255), (55, 168, 250),
-    (40, 188, 235), (28, 205, 216), (24, 221, 194), (31, 233, 175),
-    (50, 242, 152), (78, 249, 125), (109, 254, 98), (139, 255, 75),
-    (164, 252, 60), (185, 246, 53), (205, 236, 52), (223, 223, 55),
-    (238, 207, 58), (248, 190, 57), (253, 172, 52), (254, 150, 43),
-    (251, 126, 33), (244, 102, 23), (235, 80, 14), (223, 63, 8),
-    (208, 47, 5), (190, 33, 2), (169, 22, 1), (146, 11, 1), (122, 4, 3)],
-    np.float32) / 255.0
-
-
-def _turbo_colors(num_points):
-    """(P, 3) colours in [0, 1] along 'turbo', as get_colors(P) spaces
-    them, from the table above."""
-    steps = np.linspace(0, 1, num_points)
-    knots = np.linspace(0, 1, len(_TURBO_STEPS))
-    return np.stack([np.interp(steps, knots, _TURBO_STEPS[:, c])
-                     for c in range(3)], -1)
-
-
 def batch_overlay(images, points, radii=None, out_path=None,
                   unique_color=False, size=10, normalize=True, opacity=1.0,
                   colorscale="turbo", range=(-1, 1)):
@@ -233,8 +220,7 @@ def batch_overlay(images, points, radii=None, out_path=None,
     (helpers.py:197-283). The JAX package draws with a matplotlib scatter;
     this draws the same markers with PIL: discs of ``size`` square points
     at 100 dpi, red, or with ``unique_color`` one colour a point along
-    'turbo' (other colorscales through get_colors, which needs
-    matplotlib).
+    ``colorscale``, as get_colors samples it.
 
     images: (N, C, H, W); points: (N, P, 2) pixel xy. Returns a list of
     (H, W, 3) uint8 arrays."""
@@ -244,8 +230,7 @@ def batch_overlay(images, points, radii=None, out_path=None,
     N, C, H, W = images.shape
     P = points.shape[1]
     if unique_color:
-        cols = (_turbo_colors(P) if colorscale == "turbo"
-                else _numpy(get_colors(P, colorscale))[0] * 0.5 + 0.5)
+        cols = _numpy(get_colors(P, colorscale))[0] * 0.5 + 0.5
         cols = [tuple(int(v) for v in np.round(c * 255)) for c in cols]
     else:
         cols = [(255, 0, 0)] * P

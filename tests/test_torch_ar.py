@@ -179,10 +179,27 @@ def test_determine_flips_matches_jax(jparams, model, no_flip_inference):
     np.testing.assert_array_equal(ours[3].numpy(), np.asarray(ref[3]))
 
 
-def test_determine_flips_refuses_a_classifier(model):
-    with pytest.raises(NotImplementedError, match="cluster slice"):
-        tcommon.determine_flips(model, torch.zeros(1, 3, S, S),
-                                classifier=object())
+def test_determine_flips_refuses_a_classifier(jparams, model):
+    """With a cluster classifier (one cluster, two logits) the classifier
+    decides the flips and the warp policy is one-hot, as in the JAX
+    package; the model's own flip inference is not run."""
+    from test_torch_classifier import centred_params, cls_model, cls_params
+    jcls = import_module("gangealing_tpu.models.classifier")
+    cfg = jcls.ClassifierConfig(size=S, supersize=S, channel_multiplier=0.25,
+                                num_heads=2, max_channels=32)
+    imgs = ar_images(4, 6)
+    cparams = centred_params(cfg, cls_params(cfg, seed=3), imgs)
+    ref = jcommon.determine_flips(
+        jparams, JCFG, jnp.asarray(imgs),
+        classifier_params={k: jnp.asarray(v) for k, v in cparams.items()},
+        classifier_cfg=cfg)
+    with torch.no_grad():
+        ours = tcommon.determine_flips(model, torch.from_numpy(imgs),
+                                       classifier=cls_model(cfg, cparams))
+    for o, r in zip(ours, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    flips = np.asarray(ref[1]).ravel()
+    assert 0 < flips.sum() < len(flips)
 
 
 def _splat_inputs(seed, n=2, p=300):
@@ -301,7 +318,10 @@ def test_composed_propagate_object_matches_jax(jparams, model):
             max_sigma=1.5)
     for o, r in zip(ours, ref):
         _close(o, r, SPLAT_TOL)
-    with pytest.raises(NotImplementedError, match="cluster slice"):
-        tstn.composed_propagate_object(
+    # a one-head model takes no classifier's advice, as in the JAX package
+    with torch.no_grad():
+        again = tstn.composed_propagate_object(
             model, *map(torch.from_numpy, (pts, vals, masks, imgs, sigma)),
-            classifier=object())
+            classifier=object(), cluster=0, max_sigma=1.5)
+    for o, r in zip(again, ours):
+        assert torch.equal(o, r)

@@ -11,6 +11,7 @@ frame by about 1e-4 where the label's colors change fast: these seeded
 inputs read up to 1.6e-4.
 """
 
+import dataclasses
 import os
 from importlib import import_module
 
@@ -232,13 +233,22 @@ def test_cli_mixed_reality_refuses_later_slices(tmp_path, capsys):
     assert "multi-GPU slice" in capsys.readouterr().err
 
 
-def test_mixed_reality_refuses_clustering(model):
-    for kw in (dict(cluster=0), dict(classifier=object(),
-                                     average_path="avg_cluster0.png")):
-        with pytest.raises(NotImplementedError, match="cluster slice"):
-            tmr.run_gangealing_on_video(model, ar_images(18, 1), **kw)
-    with pytest.raises(NotImplementedError, match="cluster slice"):
-        tprop.propagate_to_images(model, ar_images(18, 1), cluster=0)
+def test_mixed_reality_refuses_clustering(params, model):
+    """Without a classifier ``cluster`` is not read, as in the JAX
+    package: the apps give the same frames with and without it; a
+    clustering model without its classifier is refused."""
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    x = ar_images(18, 2)
+    ref = jmr.run_gangealing_on_video(jp, JCFG, x, cluster=0)
+    ours = tmr.run_gangealing_on_video(model, x, cluster=0)
+    _close(ours["congealed"], ref["congealed"], OUT_TOL)
+    ref = jprop.propagate_to_images(jp, JCFG, x, cluster=0)
+    ours = tprop.propagate_to_images(model, x, cluster=0)
+    _close(ours["congealed"], ref["congealed"], OUT_TOL)
+    two = tstn.ComposedSTN(dataclasses.replace(model.cfg, num_heads=2))
+    for app in (tmr.run_gangealing_on_video, tprop.propagate_to_images):
+        with pytest.raises(ValueError, match="cluster classifier"):
+            app(two, x)
 
 
 def test_entry_points_run_on_the_card_unless_asked(tmp_path, model, capped,

@@ -372,7 +372,7 @@ def test_pck_batch_kernels_match_plain_on_the_card(cuda, params, pck_lmdbs,
 def test_batch_overlay_matches_jax(tmp_path):
     """The overlay the JAX package draws with matplotlib, drawn with PIL:
     images of the same size, each marker in the colour matplotlib's
-    'turbo' gives its point (within the table's 0.024, in 8 bits), and
+    'turbo' gives its point (within one 8-bit step), and
     away from the markers the image itself within one 8-bit step."""
     jvis = import_module("gangealing_tpu.utils.vis")
     from gangealing_torch.utils import vis as tvis
@@ -391,7 +391,7 @@ def test_batch_overlay_matches_jax(tmp_path):
         assert os.path.exists(tmp_path / "o" / f"{i:04d}.png")
         for (x, y), c in zip(pts[i], colours):
             got = ours[i][int(round(y)), int(round(x))]
-            assert np.abs(got / 255.0 - c).max() <= 0.024 + 1 / 255
+            assert np.abs(got / 255.0 - c).max() <= 1 / 255
         far = np.ones((40, 48), bool)
         for x, y in pts[i]:
             far[max(0, int(y) - 4):int(y) + 5, max(0, int(x) - 4):int(x) + 5] \

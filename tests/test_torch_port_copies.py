@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's framework-free helpers held
 against their originals on the same inputs: the schedules value for value
 over a range of iterations, the parsers' flags and defaults, the key
-orders, the checkpoint reader and the checkpoint helpers."""
+orders, the checkpoint reader and the checkpoint helpers; and the port's
+copy of matplotlib's colormap tables against matplotlib."""
 
 import argparse
 import os
@@ -226,7 +227,9 @@ def _jax_cli_parser(module, monkeypatch):
     ("flow_scores", ["--ckpt", "s.pt"]),
     ("congeal_dataset", ["--ckpt", "s.pt", "--out", "o"]),
     ("propagate_to_images", ["--ckpt", "s.pt", "-s", "2", "-o", "0.5"]),
-    ("prepare_data", ["--out", "o", "--path", "p", "--n_worker", "3"])])
+    ("prepare_data", ["--out", "o", "--path", "p", "--n_worker", "3"]),
+    ("train_cluster_classifier", ["--exp-name", "e", "--ckpt", "c.pt",
+                                  "--num_heads", "4", "--flips"])])
 def test_eval_cli_parsers_match_jax(module, argv, monkeypatch):
     """The eval CLIs take the JAX package's flags, defaults and choices
     and --device (default cuda); the dataset CLI, which runs on the
@@ -245,3 +248,26 @@ def test_eval_cli_parsers_match_jax(module, argv, monkeypatch):
     assert {k: v for k, v in flags.items() if k != "device"} == ref_flags
     assert parsed.pop("device") == "cuda"
     assert parsed == ref_parsed
+
+
+def test_colormap_tables_are_matplotlibs():
+    """The colormaps the apps splat with ('turbo' and the cluster
+    colorscales) are matplotlib's 256-entry tables in float32, and
+    get_colors samples them as matplotlib does, for any number of points."""
+    import matplotlib
+    from gangealing_torch.utils import vis as tvis
+    jvis = import_module("gangealing_tpu.utils.vis")
+    with np.load(tvis._COLORMAPS) as tables:
+        names = set(tables.files)
+        for name in names:
+            lut = matplotlib.colormaps[name](np.arange(256))[:, :3]
+            np.testing.assert_array_equal(tables[name],
+                                          lut.astype(np.float32))
+    used = {tvis._MPL_FALLBACKS.get(c, c)
+            for c in tvis.CLUSTER_COLORSCALES + ["turbo"]}
+    assert used <= names
+    for scale in tvis.CLUSTER_COLORSCALES + ["turbo"]:
+        for n in (1, 2, 7, 255, 256, 257, 4060):
+            np.testing.assert_array_equal(
+                tvis.get_colors(n, scale).numpy(),
+                np.asarray(jvis.get_colors(n, scale)), f"{scale} {n}")

@@ -85,6 +85,25 @@ def test_cli_train_and_auto_resume(tmp_path, small_widths):
     (["--compute_dtype", "bfloat16"], "precision"),
     (["--profile_dir", "p"], "profiling")])
 def test_cli_refuses_later_slices(tmp_path, capsys, extra, slice_name):
+    """The options of later slices are refused with the slice's name. The
+    clustering options are taken, and give the JAX CLI's configuration
+    (tests/test_torch_cluster_apps.py trains with them)."""
+    if slice_name == "cluster":
+        from importlib import import_module
+        jtrain = import_module("gangealing_tpu.cli.train")
+        jargs = import_module("gangealing_tpu.cli.args")
+        parser = tcli.training_argparse()
+        args = parser.parse_args(_argv(tmp_path, 2, *extra))
+        tcli.check_supported(parser, args)
+        argv = _argv(tmp_path, 2, *extra)
+        del argv[argv.index("--device"):argv.index("--device") + 2]
+        jcfg = jtrain.build_configs(
+            jargs.base_training_argparse().parse_args(argv))
+        cfg = tcli.build_configs(args)
+        assert (cfg.t.num_heads, cfg.ll.num_heads, cfg.flips) == (
+            jcfg.t.num_heads, jcfg.ll.num_heads, jcfg.flips)
+        assert cfg.t.num_heads > 1 or cfg.flips
+        return
     with pytest.raises(SystemExit):
         tcli.main(_argv(tmp_path, 2, *extra))
     assert slice_name in capsys.readouterr().err
