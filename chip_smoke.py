@@ -1,10 +1,13 @@
 """Smoke run of gangealing_torch on one CUDA card: build the kernels, hold
 them against their plain PyTorch versions, serve the flagship ComposedSTN
 congeal forward through them, train the flagship GANgealing configuration
-through them, and run the AR object-lens app and the eval apps (PCK-Transfer,
-flow scores, congeal_dataset and their CLIs, on LMDB datasets) through
-them; then train the LSUN-cars clustering configuration and its cluster
-classifier and run the AR apps with that classifier.
+through them with its visuals and a profiler window, and run the AR
+object-lens app and the eval apps (PCK-Transfer, flow scores,
+congeal_dataset and their CLIs, on LMDB datasets) through them; then train
+the LSUN-cars clustering configuration with its cluster visuals and its
+cluster classifier and run the AR apps with that classifier; then render
+the correspondence videos (vis_correspondence) and turn a video into an
+LMDB (process_video).
 
     python3 chip_smoke.py
 
@@ -41,7 +44,16 @@ Phases:
      batch 40) with seeded random G and VGG: python -m
      gangealing_torch.cli.train for 4 iterations (1M-latent PCA cold
      start, checkpoints at 2 and 4, scalars finite, the last checkpoint
-     resumed), K1 and K3 twice per step and K5a never; the perceptual term
+     resumed), K1 and K3 twice per step and K5a never, its visuals at 0, 2
+     and 4 (n_sample 64, vis_batch_size 250, n_mean cut to 200 over an
+     LMDB of 200 synthetic 256 px reals; 6 K1 a call), each grid's PNG
+     by name, animate_visuals' mp4, and a torch.profiler window over
+     steps (1, 3] whose Chrome trace holds K1 and K3 kernels; one vis call
+     timed with its peak memory, one split into decode, G, the STN,
+     flow colouring and PNG encode with its K1 launches held against the
+     plain version, and one at batch 2 on the card (cuDNN's convolutions,
+     as cli.train runs them) against the CPU path (the arrays of the
+     grids 5e-4, the coloured flows one uint8 level); the perceptual term
      alone reaching the identity-initialised similarity head; each K1 and
      K3 launch of a step from the trained state and of one from the
      identity init, K3 again on the first with every level a float step
@@ -56,8 +68,9 @@ Phases:
      memory of a step; the device time of each head's mipmap warp and its backward to
      the grid; the device time of a step by kernel group with the idle
      share; and one step's loss and gradients on the card against the
-     port's CPU path at batch 2, from the trained state and from the
-     identity init (TRAIN_GRAD_TOL, TRAIN_GRAD_L2_TOL);
+     port's CPU path at batch 2, from the state cli.train wrote and from
+     the identity init (TRAIN_GRAD_TOL, TRAIN_GRAD_L2_TOL), as are the
+     K1 and K3 launches of the trained state;
   5. the AR object lenses (apps/mixed_reality.run_gangealing_on_video)
      with the flagship STN loaded through load_stn and a synthetic dense
      label (an opaque disc of radius 36 px in the 128 px congealed space,
@@ -117,7 +130,10 @@ Phases:
      2500, lpips; the cats run's widths) at CARS_BATCH with seeded random
      G, STN and LPIPS: python -m gangealing_torch.cli.train for 2
      iterations with --debug (the cold start's PCA on 1000 latents, its
-     centroids the first 4), K1 and K3 twice a step, imgs/s over 8 steps
+     centroids the first 4) and the recipe's --vis_every 5000 (the cluster
+     visuals at its start over the 200 reals, n_mean 200, 4 chunks of 62
+     fakes: 18 K1; timed, peak memory, each head's grids), K1 and K3
+     twice a step, imgs/s over 8 steps
      in 4 parts, the peak memory of a step, each K1 and K3 launch of a step
      held against the plain versions and timed beside them, their bounds
      (reflected taps) and F.grid_sample on the volume, the pyramid's build
@@ -139,7 +155,20 @@ Phases:
      propagate_to_images with and without a cluster, K1 4, K2 1 and K6 1
      a batch held against the plain versions, and 2 frames on the card
      against the CPU path (equal clusters and flips, the AR gates);
-  8. rates, and each kernel's device time (torch.profiler; K6's by CUDA
+  8. the visualize phase: python -m gangealing_torch.cli.vis_correspondence
+     in track mode with the flagship through load_stn, 4 of the reals, a
+     fully opaque 256 px RGBA label (P = 65,536), --length 60,
+     --vis_in_stages, --stage_flip and --objects: its three mp4s, frames/s,
+     each stage's seconds and launches, every K1, K2 and K6 launch held
+     against its plain version (K6's over-full tile lists included), one
+     tracked stage under torch.profiler (the idle share); a 4-frame track
+     of 2 images with a disc label on the card against the CPU path
+     (congealing frames within one uint8 level, the patch searches equal
+     but at near ties, counted); --mode congeal, propagate and average
+     once; python -m gangealing_torch.cli.process_video on 32 frames of
+     256 px, read back, and its work split into decode, crop, PNG encode
+     and the LMDB's write;
+  9. rates, and each kernel's device time (torch.profiler; K6's by CUDA
      events around back-to-back calls, as a profile of it now and then
      misses launches) beside its plain version's, its bound on the card (the bytes of an image that
      these grids must read counted as the distinct texels their taps reach;
@@ -153,7 +182,7 @@ Phases:
      check (three kernels a call each), and the
      N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train, the AR apps, the
-     eval apps and the cluster phase) and
+     eval apps, the cluster phase and the visualize phase) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -183,6 +212,7 @@ from gangealing_torch import LAUNCHES, _build
 from gangealing_torch.apps import congeal_dataset as congeal_app
 from gangealing_torch.apps import flow_scores as flow_app
 from gangealing_torch.apps import pck as pck_app
+from gangealing_torch.apps import vis_correspondence as vc_app
 from gangealing_torch.apps.common import determine_flips, load_stn
 from gangealing_torch.apps.mixed_reality import run_gangealing_on_video
 from gangealing_torch.apps.propagate_to_images import propagate_to_images
@@ -191,13 +221,15 @@ from gangealing_torch.cli import flow_scores as flow_scores_cli
 from gangealing_torch.cli import mixed_reality as mixed_reality_cli
 from gangealing_torch.cli import pck as pck_cli
 from gangealing_torch.cli import prepare_data as prepare_data_cli
+from gangealing_torch.cli import process_video as process_video_cli
 from gangealing_torch.cli import propagate_to_images as propagate_cli
 from gangealing_torch.cli import train as train_cli
 from gangealing_torch.cli import train_cluster_classifier as cls_cli
+from gangealing_torch.cli import vis_correspondence as vis_cli
 from gangealing_torch.data.dataset import (
     DataLoader, MultiResolutionDataset, PCKDataset)
 from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
-from gangealing_torch.data.prepare import SPAIR_PERMUTATIONS
+from gangealing_torch.data.prepare import SPAIR_PERMUTATIONS, center_crop
 from gangealing_torch.models.latent_learner import LatentLearner
 from gangealing_torch.models.lpips import make_perceptual_loss
 from gangealing_torch.models import stn as stn_ops
@@ -217,11 +249,15 @@ from gangealing_torch.ops.mipmap import (
 from gangealing_torch.ops.resample import interpolate_bilinear
 from gangealing_torch.ops.splat import splat2d, splat2d_pair
 from gangealing_torch.train import checkpoint as train_ckpt
+from gangealing_torch.train import loop as train_loop
 from gangealing_torch.train.classifier_train import ClassifierTrainer
 from gangealing_torch.train.clustering import kmeans_plusplus
 from gangealing_torch.train.losses import (
     assign_fake_images_to_clusters, gangealing_loss)
 from gangealing_torch.train.state import TrainState, train_step
+from gangealing_torch.train import visuals as visuals_mod
+from gangealing_torch.train.visuals import (
+    GANgealingWriter, animate_visuals, create_training_visuals)
 
 PADDINGS = ("border", "reflection", "zeros")
 KERNEL_TOL = 1e-5
@@ -306,9 +342,12 @@ SKEWED = {"zoom-in": 0.25, "border pile": 2.0}
 
 # The kernels the main path launches: K1 and K2 in serve (K2 in its
 # antialias=False forward), K1 and K3 in every train step (the cars step's
-# too), K1, K2 and K6 in every batch of the AR app (with the classifier
-# too), K1 and K2 in every PCK batch, K6 in cli.propagate_to_images and K1
-# in every classifier step.
+# too), K1 in every training vis call (6 a cats call, 18 a cars call), K1,
+# K2 and K6 in every batch of the AR app (with the classifier too), K1 and
+# K2 in every PCK batch, K6 in cli.propagate_to_images, K1 in every
+# classifier step, and in cli.vis_correspondence's track K1 in every frame
+# of a stage, K2 once and K6 in the flip's splat and each chunk of
+# splat_batch frames.
 MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords",
                      "splat")
 
@@ -1123,9 +1162,40 @@ def serve(dev, card):
     return rates, peak_gib, launches, path_err, k1_path
 
 
-def train_argv(results, gpath):
+# The training visuals: the recipes' n_sample (64) and vis_batch_size (250,
+# 62 a head in the cars run), n_mean cut from 8,000 to VIS_REALS as --debug
+# cuts it, over an LMDB of VIS_REALS smooth 256 px images; the cats run
+# draws them every VIS_EVERY iterations (and at its start) and traces its
+# steps (PROFILE_WINDOW] with torch.profiler; the cars run takes the
+# recipe's --vis_every 5000, so draws them at its start. A vis call's
+# share is of the VIS_CYCLE iterations between two of them at this run's
+# imgs/s. The PNG grids of a cats vis call, by name.
+VIS_REALS = 200
+VIS_SAMPLES = 64
+VIS_BATCH = 250
+VIS_EVERY = 2
+PROFILE_WINDOW = (1, 3)
+VIS_CYCLE = 5000
+CATS_GRIDS = ("sample", "mean_sample", "transformed_sample",
+              "mean_transformed_sample", "truncated_sample",
+              "mean_truncated_sample", "mean_EMA_transformed_real_sample",
+              "EMA_transformed_real_sample", "flow_real")
+# a colour-coded flow is floored to uint8 levels: flows within GRID_TOL may
+# land a level apart
+FLOW_RGB_TOL = 1.0 / 255 + 1e-6
+
+
+def real_lmdb(path):
+    """VIS_REALS smooth 256 px images as an LMDB of PNGs: the real images
+    of the training visuals and of the visualize phase."""
+    return image_lmdb(path, smooth_images(
+        VIS_REALS, torch.Generator().manual_seed(21)).numpy())
+
+
+def train_argv(results, gpath, reals, trace_dir):
     """The reference's LSUN-cats run (scripts/training/lsun_cats_ssl.sh) on
-    one card at the global batch of 40, for TRAIN_ITERS iterations."""
+    one card at the global batch of 40, for TRAIN_ITERS iterations, with
+    its visuals every VIS_EVERY and a profiler window."""
     return ["--exp-name", "smoke", "--results", results, "--ckpt", gpath,
             "--load_G_only", "--padding_mode", "border", "--tv_weight", "1000",
             "--loss_fn", "vgg_ssl", "--ndirs", "1", "--inject", "5",
@@ -1133,7 +1203,59 @@ def train_argv(results, gpath):
             "--gen_channel_multiplier", "2", "--flow_size", "128",
             "--stn_channel_multiplier", "0.5", "--real_size", "256",
             "--batch", str(TRAIN_BATCH), "--iter", str(TRAIN_ITERS),
-            "--ckpt_every", "2", "--vis_every", "0", "--log_every", "1"]
+            "--ckpt_every", "2", "--vis_every", str(VIS_EVERY),
+            "--real_data_path", reals, "--n_mean", str(VIS_REALS),
+            "--n_sample", str(VIS_SAMPLES), "--vis_batch_size",
+            str(VIS_BATCH), "--profile_dir", trace_dir, "--profile_start",
+            str(PROFILE_WINDOW[0]), "--profile_stop", str(PROFILE_WINDOW[1]),
+            "--log_every", "1"]
+
+
+@contextlib.contextmanager
+def vis_calls(name, itr_index):
+    """Time each call of the training loop's visuals function ``name`` made
+    in the block, the card synchronised at both ends. Records (iteration,
+    seconds, peak GiB from its start, its K1 launches) a call."""
+    fn = getattr(train_loop, name)
+    calls = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1 = LAUNCHES["mipmap_sample"]
+        t0 = time.perf_counter()
+        fn(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append((a[itr_index], time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 2 ** 30,
+                      LAUNCHES["mipmap_sample"] - k1))
+
+    setattr(train_loop, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(train_loop, name, fn)
+
+
+def check_grids(run_dir, names, itrs):
+    pngs = set(os.listdir(run_dir))
+    missing = [f"{n}_{str(i).zfill(7)}.png" for n in names for i in itrs
+               if f"{n}_{str(i).zfill(7)}.png" not in pngs]
+    check(not missing, f"the visuals wrote no {missing[:4]}")
+
+
+def trace_kernels(trace_dir):
+    """The kernel events of the one Chrome trace in ``trace_dir``, counted
+    by name: K1's and K3's, and all."""
+    files = os.listdir(trace_dir)
+    check(len(files) == 1 and files[0].endswith(".json"),
+          f"the profiler window wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return ({k: sum(k in n for n in names)
+             for k in ("mipmap_pyramid_fwd", "mipmap_pyramid_dcoords")},
+            len(names), os.path.getsize(os.path.join(trace_dir, files[0])))
 
 
 def scaled_err(ours, ref):
@@ -1380,30 +1502,54 @@ def backward_times(calls, graph_of, kernel):
                                                   retain_graph=True)))
 
 
-def cli_run(dev):
+def cli_run(dev, reals):
     """python -m gangealing_torch.cli.train in process, from a seeded random
-    G saved in the reference schema; then the scalars and the last
-    checkpoint, resumed into a fresh state."""
+    G saved in the reference schema, with its visuals and a profiler
+    window; then the scalars, the PNG grids, their animation, the trace's
+    kernels and the last checkpoint, resumed into a fresh state."""
     d = tempfile.mkdtemp()
     gpath = os.path.join(d, "g.pt")
     gen = Generator(GeneratorConfig(), generator=torch.Generator().manual_seed(3))
     torch.save({"g_ema": gen.state_dict()}, gpath)
     del gen
+    trace_dir = os.path.join(d, "trace")
     zero_launches()
     t0 = time.perf_counter()
-    state, generator, perceptual, pfn = train_cli.main(
-        train_argv(os.path.join(d, "results"), gpath))
+    with vis_calls("create_training_visuals", 9) as vis:
+        state, generator, perceptual, pfn = train_cli.main(
+            train_argv(os.path.join(d, "results"), gpath, reals, trace_dir))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    vis_k1 = sum(c[3] for c in vis)
     print(f"cli.train: {TRAIN_ITERS} iterations at batch {TRAIN_BATCH} with "
-          f"the cold start in {seconds:.1f} s; launches {launches}")
-    check(launches["mipmap_sample"] == 2 * TRAIN_ITERS
+          f"the cold start in {seconds:.1f} s; launches {launches}; visuals "
+          f"at iterations {[c[0] for c in vis]} in "
+          f"{', '.join(f'{c[1]:.2f}' for c in vis)} s, K1 {vis_k1}")
+    check([c[0] for c in vis] == list(range(0, TRAIN_ITERS + 1, VIS_EVERY)),
+          "the visuals ran at the wrong iterations")
+    # a vis call: two K1 in each of the reals' mean (one loader batch),
+    # the sample reals and the fakes
+    check(all(c[3] == 6 for c in vis), "expected 6 K1 launches a vis call")
+    check(launches["mipmap_sample"] == 2 * TRAIN_ITERS + vis_k1
           and launches["mipmap_sample_dcoords"] == 2 * TRAIN_ITERS,
           "expected 2 K1 and 2 K3 launches per train step")
     check(launches["mipmap_sample_dpyramid"] == 0,
           "K5a launched for a pyramid that needs no gradient")
     run_dir = os.path.join(d, "results", "smoke")
+    check_grids(run_dir, CATS_GRIDS, [c[0] for c in vis])
+    mp4 = os.path.join(d, "transformed_sample.mp4")
+    check(animate_visuals(run_dir, "transformed_sample", mp4) == len(vis)
+          and os.path.getsize(mp4) > 0, "animate_visuals wrote no video")
+    counts, n_kernels, size = trace_kernels(trace_dir)
+    print(f"profiler window ({PROFILE_WINDOW[0]}, {PROFILE_WINDOW[1]}]: a "
+          f"Chrome trace of {size / 2 ** 20:.1f} MiB, {n_kernels} kernel "
+          f"events, K1 {counts['mipmap_pyramid_fwd']}, K3 "
+          f"{counts['mipmap_pyramid_dcoords']}; {len(vis)} PNG grid sets "
+          f"and {mp4.rsplit('/', 1)[-1]} of {len(vis)} frames written")
+    check(counts["mipmap_pyramid_fwd"] > 0
+          and counts["mipmap_pyramid_dcoords"] > 0,
+          "the profiler's trace holds no K1 or no K3 kernel")
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         scalars = [json.loads(line) for line in f if line.strip()]
     check({s["step"] for s in scalars} == set(range(1, TRAIN_ITERS + 1)),
@@ -1435,9 +1581,162 @@ def cli_run(dev):
     return state, generator, perceptual, pfn, launches
 
 
-def train(dev, card):
-    state, generator, perceptual, pfn, cli_launches = cli_run(dev)
+class GridRecorder:
+    """A writer that keeps the arrays handed to it, by grid name."""
+
+    def __init__(self):
+        self.grids = {}
+
+    def log_image_grid(self, images, name, *a, **kw):
+        self.grids[name] = images.detach().cpu() if torch.is_tensor(images) \
+            else torch.from_numpy(np.asarray(images))
+
+
+@contextlib.contextmanager
+def vis_split(generator, t, writer):
+    """Split the host-clock seconds of the visuals made in the block into
+    the loader's PNG decodes, G's forwards, the STN's, the flows'
+    colouring and the grids' assembly with their PNG encodes. The card is
+    synchronised where each part starts and ends; a part nested in
+    another counts as the outer one. Yields the seconds by part."""
+    parts = {}
+    depth, start = [0], [0.0]
+
+    def enter(*_):
+        if depth[0] == 0:
+            torch.cuda.synchronize()
+            start[0] = time.perf_counter()
+        depth[0] += 1
+
+    def leave(part):
+        depth[0] -= 1
+        if depth[0] == 0:
+            torch.cuda.synchronize()
+            parts[part] = parts.get(part, 0.0) + time.perf_counter() - start[0]
+
+    def timed(fn, part):
+        def run(*a, **kw):
+            enter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                leave(part)
+        return run
+
+    hooks = [h for part, model in (("G", generator), ("STN", t))
+             for m in model.modules()
+             for h in (m.register_forward_pre_hook(enter),
+                       m.register_forward_hook(
+                           lambda *_, p=part: leave(p)))]
+    getitem, colour = MultiResolutionDataset.__getitem__, visuals_mod.flow_to_rgb
+    MultiResolutionDataset.__getitem__ = timed(getitem, "PNG decode")
+    visuals_mod.flow_to_rgb = timed(colour, "flow colouring")
+    writer._grid = timed(writer._grid, "grids and PNG encode")
+    try:
+        yield parts
+    finally:
+        for h in hooks:
+            h.remove()
+        MultiResolutionDataset.__getitem__ = getitem
+        visuals_mod.flow_to_rgb = colour
+        del writer._grid
+
+
+def cats_visuals(dev, card, state, generator, reals, errs):
+    """create_training_visuals from the state cli.train wrote, at the cats
+    recipe's n_sample and vis_batch_size, n_mean cut to VIS_REALS: seconds
+    and peak memory of a call; a call split by part (vis_split), with each
+    K1 launch held against its plain version; a call at batch 2 on the
+    card against the port's CPU path (the same z and generator noise).
+    Returns (seconds, peak GiB)."""
     cfg = state.cfg
+    dset = MultiResolutionDataset(reals, resolution=256)
+    loader = DataLoader(dset, batch_size=VIS_BATCH, shuffle=False,
+                        drop_last=False)
+    sample_reals = np.stack([dset[i] for i in range(VIS_SAMPLES)])
+    rng = torch.Generator(dev).manual_seed(8)
+    z = torch.randn(VIS_SAMPLES, cfg.g.style_dim, generator=rng, device=dev)
+    d = tempfile.mkdtemp()
+    writer = GANgealingWriter(d)
+
+    def call():
+        create_training_visuals(generator, state.t_ema, state.ll, loader,
+                                sample_reals, z, 1.0, VIS_REALS, VIS_SAMPLES,
+                                0, writer, rng=rng,
+                                padding_mode=cfg.padding_mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    with recorded(mipmap_ops, "mipmap_sample") as k1, \
+            vis_split(generator, state.t_ema, writer) as parts:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+    check(len(k1) == 6, f"a vis call launched K1 {len(k1)} times, expected 6")
+    vis_errs = {}
+    with torch.no_grad():
+        hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
+             vis_errs)
+    writer.close()
+    shutil.rmtree(d)
+    print(f"cats vis call (n_sample {VIS_SAMPLES}, vis_batch_size "
+          f"{VIS_BATCH}, n_mean {VIS_REALS}): {seconds:.2f} s, peak memory "
+          f"{peak:.2f} GiB; its {len(k1)} K1 launches, inputs "
+          f"{sorted({tuple(a[1].shape) for a, _ in k1})}: max abs err vs "
+          f"plain {vis_errs['mipmap_sample']:.3e} [{card}]")
+    print(f"a cats vis call split, the card synchronised at each part's "
+          f"ends: {split_s:.3f} s, "
+          f"{', '.join(f'{k} {v:.3f} s' for k, v in parts.items())}, the "
+          f"rest {split_s - sum(parts.values()):.3f} s [{card}]")
+    errs["mipmap_sample"] = max(errs.get("mipmap_sample", 0.0),
+                                vis_errs["mipmap_sample"])
+
+    # batch 2, the card (with cuDNN, as cli.train runs) against the CPU
+    g = torch.Generator().manual_seed(9)
+    z2 = torch.randn(2, cfg.g.style_dim, generator=g)
+    noise = [[torch.randn(s, generator=g) for s in cfg.g.noise_shapes(2)]
+             for _ in range(2)]
+    cpu = [copy.deepcopy(m).cpu() for m in (generator, state.t_ema,
+                                             state.ll)]
+    runs = {}
+    for d_, mods in ((dev, (generator, state.t_ema, state.ll)),
+                     (torch.device("cpu"), cpu)):
+        rec = GridRecorder()
+        create_training_visuals(
+            *mods, [sample_reals[:2]], sample_reals[:2], z2.to(d_), 1.0,
+            2, 2, 0, rec, noise=[[n.to(d_) for n in ns] for ns in noise],
+            padding_mode=cfg.padding_mode)
+        runs[d_.type] = rec.grids
+    check(set(runs["cuda"]) == set(runs["cpu"]) == {
+        "mean_EMA_transformed_real_sample", "EMA_transformed_real_sample",
+        "flow_real", "sample", "transformed_sample", "truncated_sample"},
+        f"the batch-2 visuals logged {sorted(runs['cuda'])}")
+    diffs = {k: float((v - runs["cpu"][k]).abs().max())
+             for k, v in runs["cuda"].items()}
+    print(f"card vs CPU path, a vis call at batch 2, the grids' arrays max "
+          f"abs err: {', '.join(f'{k} {v:.3e}' for k, v in diffs.items())}")
+    for k, v in diffs.items():
+        check(v <= (FLOW_RGB_TOL if k == "flow_real" else OUT_TOL),
+              f"the vis call's {k} differs from the CPU path: {v:.3e}")
+    return seconds, peak
+
+
+def train(dev, card, reals):
+    state, generator, perceptual, pfn, cli_launches = cli_run(dev, reals)
+    cfg = state.cfg
+    # The card is held against the CPU path, and the trained state's K1
+    # and K3 launches against their plain versions, at the state cli.train
+    # wrote. The steps below go on training the random weights, which can
+    # drift where a float32 step is ill-conditioned on any device (as the
+    # cars run's do, cars_train).
+    t_cli, ll_cli = copy.deepcopy(state.t), copy.deepcopy(state.ll)
+    errs = {}
+    vis_s, vis_peak = cats_visuals(dev, card, state, generator, reals, errs)
     rng = torch.Generator(dev).manual_seed(5)
 
     def step(st=state):
@@ -1486,21 +1785,20 @@ def train(dev, card):
     print(f"perceptual term alone, identity STN: largest similarity-head "
           f"gradient {gmax:.3e}")
 
-    # each K1 and K3 launch of a step from the trained state, and of one
-    # from the identity init, where every point sits on an integer
-    # coordinate, the first row and column on the border clamp and every
-    # level on 1
-    errs = {}
+    # each K1 and K3 launch of a step from the trained state (the one
+    # cli.train wrote), and of one from the identity init, where every
+    # point sits on an integer coordinate, the first row and column on the
+    # border clamp and every level on 1
+    st_cli = TrainState(cfg, copy.deepcopy(t_cli), copy.deepcopy(ll_cli))
     st_id = TrainState(cfg, copy.deepcopy(t_id), copy.deepcopy(state.ll))
-    for what, st in (("trained state", state), ("identity init", st_id)):
+    for what, st in (("trained state", st_cli), ("identity init", st_id)):
         with recorded(mipmap_ops, "mipmap_sample") as k1, \
-                recorded(mipmap_ops, "mipmap_sample_dcoords") as k3, \
-                recorded(stn_ops, "mipmap_warp") as warps:
+                recorded(mipmap_ops, "mipmap_sample_dcoords") as k3:
             step(st)
         check(len(k1) == 2 and len(k3) == 2, f"a step from the {what} did "
               "not launch K1 and K3 twice")
         if what == "trained state":
-            k3_trained, warps_trained = k3, warps
+            k3_trained = k3
         step_errs = {}
         with torch.no_grad():
             hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
@@ -1512,6 +1810,12 @@ def train(dev, card):
               f"{tuple(k3[0][0][0].level0.shape)} {tuple(k3[0][0][1].shape)}: max "
               f"abs err K1 {step_errs['mipmap_sample']:.3e}, K3 "
               f"{step_errs['mipmap_sample_dcoords']:.3e}")
+    # K3's device time and each head's warp are timed on a step from the
+    # state the timed steps reached, as before the gates moved to the state
+    # cli.train wrote
+    with recorded(mipmap_ops, "mipmap_sample_dcoords") as k3_timed, \
+            recorded(stn_ops, "mipmap_warp") as warps_timed:
+        step()
     k3 = k3_trained
     # K3 where every level lies one float step below an integer: there
     # |level - (f + 2)| rounds to 1, the kink of level f + 2's tent
@@ -1575,7 +1879,7 @@ def train(dev, card):
 
     times = {
         "mipmap_sample_dcoords": backward_times(
-            k3, k3_graph, mipmap_ops.mipmap_sample_dcoords),
+            k3_timed, k3_graph, mipmap_ops.mipmap_sample_dcoords),
         "grid_sample_dgrid": backward_times(
             k4, k4_graph, grid_sample_ops.grid_sample_dgrid),
         "mipmap_sample_dpyramid": backward_times(
@@ -1587,7 +1891,7 @@ def train(dev, card):
     # skewed grids
     k5a_times([(f"the recorded launch {i + 1} of the check", *a)
                for i, (a, _) in enumerate(k5a)] + k5a_skewed, card)
-    for head, (args, _) in zip(("similarity", "flow"), warps_trained):
+    for head, (args, _) in zip(("similarity", "flow"), warps_timed):
         img, grid, _, pm = args
         w_ms, w_k_ms = warp_ms(img.detach(), grid.detach(), pm, backward=True)
         print(f"the mipmap warp and its backward to the grid in the {head} "
@@ -1615,14 +1919,19 @@ def train(dev, card):
     print_groups(f"step at batch {TRAIN_BATCH}, 2 steps", 2,
                  *kernel_groups(prof, groups), card, top=8)
 
-    card_vs_cpu_step(cfg, state.t, state.ll, generator, perceptual, dev,
+    card_vs_cpu_step(cfg, t_cli, ll_cli, generator, perceptual, dev,
                      "trained state")
     card_vs_cpu_step(cfg, t_id, state.ll, generator, perceptual, dev,
                      "identity init")
+    cycle = VIS_CYCLE * TRAIN_BATCH / rate
+    print(f"cats vis call: {vis_s:.2f} s, peak {vis_peak:.2f} GiB; a "
+          f"{VIS_CYCLE}-iteration cycle at {rate:.1f} imgs/s takes "
+          f"{cycle:.0f} s, the vis call {vis_s / cycle:.4%} of it [{card}]")
     # the side checks' launches, apart from the main path's (cli.train)
     check_launches = {k: no_aa_launches[k] + image_launches[k]
                       for k in LAUNCHES}
-    return rate, peak, cli_launches, check_launches, errs, times
+    return (rate, peak, cli_launches, check_launches, errs, times,
+            (vis_s, vis_peak))
 
 
 def step_batch2(cfg):
@@ -1675,7 +1984,8 @@ def card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what):
           f"value; all gradients {l2:.3e} in relative L2 norm")
     check(rel <= 1e-4, f"{what}: a loss term differs from the CPU path")
     check(worst[0] <= TRAIN_GRAD_TOL and l2 <= TRAIN_GRAD_L2_TOL,
-          f"{what}: the gradients differ from the CPU path")
+          f"{what}: the gradients differ from the CPU path (worst tensor "
+          f"{worst[1]} at {worst[0]:.3e}, all {l2:.3e} in L2)")
 
 
 def synthetic_label(size=128, radius=LABEL_RADIUS):
@@ -2727,10 +3037,11 @@ def cars_kernels(state, step, card):
     return errs, {"mipmap_sample": k1_row, "mipmap_sample_dcoords": k3_row}
 
 
-def cars_train(dev, card, d, batch):
-    """cli.train on the cars flags, the timed steps, the kernels at their
-    shapes, where the time goes, and the card against the CPU path.
-    Returns the state and what the classifier and the report need."""
+def cars_train(dev, card, d, batch, reals):
+    """cli.train on the cars flags with its cluster visuals at the start,
+    the timed steps, the kernels at their shapes, where the time goes, and
+    the card against the CPU path. Returns the state and what the
+    classifier and the report need."""
     gpath = os.path.join(d, "g.pt")
     gen = Generator(GeneratorConfig(),
                     generator=torch.Generator().manual_seed(3))
@@ -2739,8 +3050,11 @@ def cars_train(dev, card, d, batch):
     results = os.path.join(d, "results")
     zero_launches()
     t0 = time.perf_counter()
-    state, generator, perceptual, pfn = train_cli.main(
-        cars_argv(results, gpath, batch, CARS_ITERS, "--load_G_only"))
+    with vis_calls("create_training_cluster_visuals", 13) as vis:
+        state, generator, perceptual, pfn = train_cli.main(
+            cars_argv(results, gpath, batch, CARS_ITERS, "--load_G_only",
+                      "--vis_every", str(VIS_CYCLE), "--real_data_path",
+                      reals))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
@@ -2752,10 +3066,27 @@ def cars_train(dev, card, d, batch):
           and cfg.padding_mode == "reflection" and cfg.sample_from_full_res
           and cfg.loss_fn == "lpips" and cfg.ll.n_comps == 5
           and cfg.ll.inject_index == 6, f"cars config {cfg}")
-    check(launches["mipmap_sample"] == 2 * CARS_ITERS
+    # the cluster visuals at iteration 0: two K1 in each of the reals'
+    # loader batches (62 a batch) and of the fakes' chunks (62 a chunk),
+    # and in the fake visuals
+    chunks = -(-VIS_REALS // (VIS_BATCH // CARS_HEADS))
+    check([c[0] for c in vis] == [0] and vis[0][3] == 2 * (2 * chunks + 1),
+          f"the cars visuals ran at {[c[0] for c in vis]} with K1 "
+          f"{[c[3] for c in vis]}, expected once, at 0, with "
+          f"{2 * (2 * chunks + 1)}")
+    vis_k1 = vis[0][3]
+    check(launches["mipmap_sample"] == 2 * CARS_ITERS + vis_k1
           and launches["mipmap_sample_dcoords"] == 2 * CARS_ITERS
-          and sum(launches.values()) == 4 * CARS_ITERS,
+          and sum(launches.values()) == 4 * CARS_ITERS + vis_k1,
           "expected 2 K1 and 2 K3 launches per cars step")
+    run_dir = os.path.join(results, "cars")
+    check_grids(run_dir, ["sample", "transformed_sample", "truncated_sample",
+                          "mean_EMA_transformed_real_sample",
+                          "mean_generated_EMA_transformed_assigned"]
+                + [f"EMA_head_{k}" for k in range(CARS_HEADS)], [0])
+    head_grids = sorted(f for f in os.listdir(run_dir)
+                        if f.startswith("generated_EMA_assigned_head_"))
+    check(head_grids, "no head's assigned fakes were drawn")
     ckpt = os.path.join(results, "cars", "checkpoints",
                         f"{str(CARS_ITERS).zfill(7)}.pt")
     check(os.path.getsize(ckpt) > 0, "cli.train wrote no cars checkpoint")
@@ -2792,6 +3123,16 @@ def cars_train(dev, card, d, batch):
           f"{sum(ms) / CARS_TIMED:.1f} ms a step, peak memory of a step "
           f"{peak:.2f} GiB of {total:.2f}; the fakes' heads and flips over "
           f"the steps {counts} [{card}]")
+    cycle = VIS_CYCLE * batch / rate
+    print(f"cars vis call at iteration 0 (n_sample {VIS_SAMPLES}, "
+          f"vis_batch_size {VIS_BATCH // CARS_HEADS} a head, n_mean "
+          f"{VIS_REALS}, {chunks} chunks of fakes at "
+          f"{2 * CARS_HEADS * (VIS_BATCH // CARS_HEADS)} streams): "
+          f"{vis[0][1]:.2f} s, peak memory {vis[0][2]:.2f} GiB of "
+          f"{total:.2f}, {vis_k1} K1 launches; grids {', '.join(head_grids)}; "
+          f"a {VIS_CYCLE}-iteration cycle at {rate:.2f} imgs/s takes "
+          f"{cycle:.0f} s, the vis call {vis[0][1] / cycle:.4%} of it "
+          f"[{card}]")
     errs, rows = cars_kernels(state, step, card)
     groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
               ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
@@ -2808,7 +3149,7 @@ def cars_train(dev, card, d, batch):
                                     perceptual, dev)
     del t_cli, ll_cli
     return (state, generator, perceptual, pfn, ckpt, launches, rate, peak,
-            errs, rows, ties)
+            errs, rows, ties, vis[0][1:3])
 
 
 def cls_argv(results, ckpt, batch, iters):
@@ -3043,7 +3384,7 @@ def time_kmeans(generator, pfn, dev, card):
     return seconds
 
 
-def cluster(dev, card):
+def cluster(dev, card, reals):
     """The cluster phase: the cars run, its classifier, the AR apps with
     it. Returns the main path's launches (each part counted from zero just
     before it), the kernels' errors and the figures of the report."""
@@ -3051,7 +3392,7 @@ def cluster(dev, card):
     batch = CARS_BATCH
     d = tempfile.mkdtemp()
     (state, generator, perceptual, pfn, ckpt, train_launches, rate, peak,
-     errs, rows, ties) = cars_train(dev, card, d, batch)
+     errs, rows, ties, cars_vis) = cars_train(dev, card, d, batch, reals)
     path, cls_launches, cls_rate, cls_peak = classifier_phase(
         dev, card, d, state, generator, perceptual, pfn, ckpt, CLS_BATCH)
     kmeans_s = time_kmeans(generator, pfn, dev, card)
@@ -3069,25 +3410,361 @@ def cluster(dev, card):
           f"with the classifier {ar_rate:.1f} frames/s; kmeans++ "
           f"{kmeans_s:.2f} s; near-tie assignments {ties}; launches "
           f"{launches} [{card}]")
-    return launches, errs, rows, (rate, peak, cls_rate, cls_peak, ar_rate)
+    return launches, errs, rows, (rate, peak, cls_rate, cls_peak, ar_rate,
+                                  cars_vis)
+
+
+# The visualize phase: python -m gangealing_torch.cli.vis_correspondence in
+# track mode at the reference's defaults (a stage of TRACK_LENGTH frames,
+# the flip of 40, sigma 1.2, opacity 0.7, splat_batch 100, the first 4
+# dataset images, 60 fps) with --vis_in_stages, --stage_flip and --objects,
+# a fully opaque 256 px RGBA label (P = 65,536); the card against the CPU
+# path on a TRACK_CHECK_LENGTH-frame track of 2 images with a disc label
+# of radius TRACK_CHECK_RADIUS; the other modes once at VIS_MODE_LENGTH
+# frames; cli.process_video on VIDEO_FRAMES frames of 256 px. Two patch
+# picks whose distances to the point differ by under NN_TIE (twice the
+# congeal gate on a grid) are a near tie, which the card and the CPU may
+# decide apart.
+TRACK_LENGTH = 60
+TRACK_FLIP = 40
+TRACK_IMAGES = 4
+TRACK_CHECK_LENGTH = 4
+TRACK_CHECK_RADIUS = 8
+VIS_MODE_LENGTH = 20
+VIDEO_FRAMES = 32
+NN_TIE = 2 * GRID_TOL
+
+
+def label_rgba(size=256, radius=None):
+    """An RGBA label of smooth colours, opaque everywhere or in a centred
+    disc of ``radius``."""
+    yy, xx = np.mgrid[:size, :size]
+    rgba = np.zeros((size, size, 4), np.uint8)
+    rgba[..., 0] = 255 * xx // size
+    rgba[..., 1] = 255 * yy // size
+    rgba[..., 2] = 128 + np.round(127 * np.sin((xx + yy) / 23.0))
+    c = (size - 1) / 2
+    rgba[..., 3] = 255 if radius is None else np.where(
+        (xx - c) ** 2 + (yy - c) ** 2 <= radius ** 2, 255, 0)
+    return rgba
+
+
+@contextlib.contextmanager
+def stage_calls():
+    """Time each _smooth_stage of the app made in the block (the card
+    synchronised at both ends): (tracks points, frames, seconds, launches)
+    a stage; and the arguments of the first stage that tracks."""
+    fn = vc_app._smooth_stage
+    calls, first = [], []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        tracks = len(a) > 5 and a[5] is not None
+        calls.append((tracks, a[3], time.perf_counter() - t0,
+                      {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                       if LAUNCHES[k] > before[k]}))
+        if tracks and not first:
+            first.append((a, kw))
+        return out
+
+    vc_app._smooth_stage = timed
+    try:
+        yield calls, first
+    finally:
+        vc_app._smooth_stage = fn
+
+
+@contextlib.contextmanager
+def nn_calls():
+    """Record the inputs and picks of every patch search made in the
+    block, on the host."""
+    fn = vc_app.nearest_neighbor_within_patch
+    calls = []
+
+    def rec(grid, points, centers, patch_size):
+        out = fn(grid, points, centers, patch_size)
+        calls.append((grid.cpu(), points.cpu(), centers.cpu(), out.cpu()))
+        return out
+
+    vc_app.nearest_neighbor_within_patch = rec
+    try:
+        yield calls
+    finally:
+        vc_app.nearest_neighbor_within_patch = fn
+
+
+def near_tie_tracks(card_calls, cpu_calls):
+    """The patch searches of the card's track against the CPU path's, call
+    by call: where the two picked apart from the same window, the picks'
+    distances on the CPU path's grid must differ by under NN_TIE. Returns
+    (those near-tie picks, the points whose last pick differs)."""
+    check(len(card_calls) == len(cpu_calls),
+          f"{len(card_calls)} patch searches on the card, "
+          f"{len(cpu_calls)} on the CPU")
+    ties = 0
+    for (_, _, c_card, o_card), (grid, pts, c_cpu, o_cpu) in zip(
+            card_calls, cpu_calls):
+        first = (o_card != o_cpu).any(-1) & (c_card == c_cpu).all(-1)
+        if not bool(first.any()):
+            continue
+        g = vc_app.pad_grid(grid)
+        Hp, Wp = g.shape[1:3]
+        for n, q in zip(*torch.nonzero(first, as_tuple=True)):
+            def dist(xy):
+                x = min(max(int(xy[0]) + 1, 0), Wp - 1)
+                y = min(max(int(xy[1]) + 1, 0), Hp - 1)
+                return float((g[n, y, x] - pts[n, q]).norm())
+            d_card, d_cpu = dist(o_card[n, q]), dist(o_cpu[n, q])
+            check(abs(d_card - d_cpu) <= NN_TIE,
+                  f"the card's patch search picked {o_card[n, q].tolist()} "
+                  f"against {o_cpu[n, q].tolist()}, distances {d_card} and "
+                  f"{d_cpu}")
+            ties += 1
+    differ = int((card_calls[-1][3] != cpu_calls[-1][3]).any(-1).sum())
+    return ties, differ
+
+
+def track_card_vs_cpu(ckpt, reals, d, card):
+    """A TRACK_CHECK_LENGTH-frame track of 2 images in stages with the flip
+    and a disc label, on the card and on the port's CPU path: the
+    congealing frames within 1 uint8 level, the patch searches equal but
+    at counted near ties."""
+    from PIL import Image
+    label = os.path.join(d, "disc.png")
+    Image.fromarray(label_rgba(radius=TRACK_CHECK_RADIUS)).save(label)
+    dset = MultiResolutionDataset(reals, resolution=256)
+    imgs = np.stack([dset[i] for i in range(2)])
+    kw = dict(label_path=label, length=TRACK_CHECK_LENGTH,
+              output_resolution=256, resolution=256, vis_in_stages=True,
+              stage_flip=True, flip_length=TRACK_CHECK_LENGTH, objects=True)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        model, _ = load_stn(ckpt, supersize=256, device=dev)
+        with nn_calls() as calls:
+            frames, _ = vc_app.smoothly_congeal_and_propagate(model, imgs,
+                                                              **kw)
+        runs.append((frames, calls))
+    (f_card, nn_card), (f_cpu, nn_cpu) = runs
+    check(len(f_card) == len(f_cpu) == 3 * TRACK_CHECK_LENGTH,
+          f"{len(f_card)} and {len(f_cpu)} congealing frames")
+    level = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                for a, b in zip(f_card, f_cpu))
+    ties, differ = near_tie_tracks(nn_card, nn_cpu)
+    points = int(nn_cpu[0][1].shape[1])
+    print(f"card vs CPU path, a {TRACK_CHECK_LENGTH}-frame track of 2 images "
+          f"in stages with the flip, {points} label points, "
+          f"{len(nn_cpu)} patch searches: congealing frames within "
+          f"{level} uint8 level(s); {ties} near-tie picks, {differ} points "
+          f"whose last pick differs [{card}]")
+    check(level <= 1, "the track's congealing frames differ from the CPU "
+          "path by more than one level")
+
+
+def region_points(coords, H, W, rx=64, ry=32):
+    """The most points of one image that fall in one of K6's rx x ry pixel
+    regions (or tiles): a lower bound on the length of its list."""
+    x = coords[..., 0].floor().long()
+    y = coords[..., 1].floor().long()
+    ok = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    n = torch.arange(coords.shape[0], device=coords.device)[:, None]
+    cells = (n * ((H // ry) * (W // rx)) + (y // ry) * (W // rx)
+             + x // rx)[ok]
+    return int(torch.bincount(cells).max())
+
+
+def process_video_split(video, out):
+    """cli.process_video's work, part by part on the host clock: cv2's
+    decodes, each frame's centre crop and its PNG encode (the two halves
+    of data/prepare.py::resize_and_convert) and the LMDB's write.
+    Returns the seconds by part."""
+    import cv2
+    import io
+    from PIL import Image
+    parts = dict.fromkeys(("decode", "crop", "PNG encode", "LMDB write"),
+                          0.0)
+    cap = cv2.VideoCapture(video)
+    items = {}
+    while True:
+        t0 = time.perf_counter()
+        ok, frame = cap.read()
+        t1 = time.perf_counter()
+        parts["decode"] += t1 - t0
+        if not ok:
+            break
+        img = center_crop(Image.fromarray(frame[:, :, ::-1]), 256)
+        t2 = time.perf_counter()
+        buf = io.BytesIO()
+        img.save(buf, format="png", quality=100)
+        items[f"256-{len(items):05d}".encode()] = buf.getvalue()
+        t3 = time.perf_counter()
+        parts["crop"] += t2 - t1
+        parts["PNG encode"] += t3 - t2
+    cap.release()
+    t0 = time.perf_counter()
+    write_lmdb(out, items)
+    parts["LMDB write"] = time.perf_counter() - t0
+    return parts
+
+
+def visualize(dev, card, reals):
+    """The visualize phase (see TRACK_LENGTH). Returns the launches of its
+    main path (each CLI run counted from zero just before it), the
+    kernels' errors and (track frames/s, the stage's idle share)."""
+    from PIL import Image
+    start = time.perf_counter()
+    d = tempfile.mkdtemp()
+    ckpt = os.path.join(d, "stn.pt")
+    make_checkpoint(ckpt)
+    label = os.path.join(d, "label.png")
+    Image.fromarray(label_rgba()).save(label)
+    out = os.path.join(d, "track")
+    argv = ["--ckpt", ckpt, "--real_data_path", reals, "--real_size", "256",
+            "--label_path", label]
+    zero_launches()
+    with stage_calls() as (stages, first), \
+            recorded(mipmap_ops, "mipmap_sample") as k1, \
+            recorded(grid_sample_ops, "grid_sample_cuda") as k2, \
+            recorded(splat_ops, "splat2d_pair_cuda") as k6:
+        t0 = time.perf_counter()
+        congeal_frames, prop_frames = vis_cli.main(
+            argv + ["--objects", "--length", str(TRACK_LENGTH),
+                    "--vis_in_stages", "--stage_flip", "--out", out])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    n_frames = len(congeal_frames) + len(prop_frames)
+    check(len(congeal_frames) == TRACK_FLIP + 2 * TRACK_LENGTH
+          and len(prop_frames) == TRACK_FLIP + 2 * TRACK_LENGTH,
+          f"{len(congeal_frames)} congealing and {len(prop_frames)} "
+          "propagation frames")
+    check(congeal_frames[0].shape == (518, 518, 3),
+          f"frames of {congeal_frames[0].shape}")
+    for name in ("smoothly_congeal.mp4", "smoothly_propagate.mp4",
+                 "smooth_correspondence.mp4"):
+        check(os.path.getsize(os.path.join(out, name)) > 0,
+              f"vis_correspondence wrote no {name}")
+    T_N = 2 * TRACK_LENGTH * TRACK_IMAGES
+    check(len(k2) == 1 and len(k6) == 1 + -(-T_N // 100)
+          and len(k1) == launches["mipmap_sample"]
+          and launches["splat"] == len(k6),
+          f"the track launched K1 {len(k1)}, K2 {len(k2)}, K6 {len(k6)}; "
+          f"counts {launches}")
+    region = max((region_points(a[0], a[4], a[5]) for a, _ in k6),
+                 default=0)
+    tile = max((region_points(a[0], a[4], a[5], 16, 16) for a, _ in k6),
+               default=0)
+    errs = {}
+    with torch.inference_mode():
+        hold("mipmap_sample", [(o, _sample_pyramid(*a)) for a, o in k1],
+             errs)
+        hold("grid_sample", [(o, grid_sample(a[0], a[1], padding_mode=a[2]))
+                             for a, o in k2], errs)
+    hold_pairs(k6, errs)
+    del k1, k2, k6
+    tracked = [c for c in stages if c[0]]
+    per_stage = tracked[0][3]
+    print(f"vis_correspondence track ({TRACK_IMAGES} images, a dense "
+          f"label of {256 * 256} points, stages of {TRACK_LENGTH} frames "
+          f"and the flip of {TRACK_FLIP}, in stages, objects): {n_frames} "
+          f"frames in {seconds:.2f} s, {n_frames / seconds:.1f} frames/s; "
+          f"{len(stages)} stages, the tracked ones "
+          f"{', '.join(f'{c[2]:.2f}' for c in tracked)} s "
+          f"({TRACK_LENGTH / np.mean([c[2] for c in tracked]):.1f} frames/s), "
+          f"launches a tracked stage {per_stage}; launches {launches}; "
+          f"K6 over up to {region} points a 64 x 32 region and {tile} a "
+          f"16 x 16 tile (its lists hold 1,536 and 192); max abs err vs "
+          f"plain K1 "
+          f"{errs['mipmap_sample']:.3e}, K2 {errs['grid_sample']:.3e}, K6 "
+          f"{errs['splat']:.3e} [{card}]")
+    check(tile > 192, "the dense label's splat did not overflow K6's "
+          "tile list")
+
+    # one tracked stage under the profiler: the device's idle share
+    (a, kw), = first
+    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
+              ("patch search gathers", ("gather",)),
+              ("reductions and argmin", ("reduce", "argmin")),
+              ("copies to the host", ("memcpy",)))
+    prof = profiled(lambda: vc_app._smooth_stage(*a, **kw))
+    by_group, busy, span, other = kernel_groups(prof, groups)
+    print_groups(f"stage of the track, {TRACK_LENGTH} frames", 1, by_group,
+                 busy, span, other, card, top=4)
+    idle = 1 - busy / span
+
+    track_card_vs_cpu(ckpt, reals, d, card)
+
+    for mode in ("congeal", "propagate", "average"):
+        zero_launches()
+        t0 = time.perf_counter()
+        frames = vis_cli.main(argv + ["--mode", mode, "--length",
+                                      str(VIS_MODE_LENGTH), "--out", out])
+        torch.cuda.synchronize()
+        mode_s = time.perf_counter() - t0
+        check(len(frames) == VIS_MODE_LENGTH
+              and os.path.getsize(os.path.join(out, f"{mode}.mp4")) > 0,
+              f"vis_correspondence --mode {mode} wrote no video")
+        print(f"vis_correspondence --mode {mode}: {VIS_MODE_LENGTH} frames "
+              f"in {mode_s:.2f} s; launches {dict(LAUNCHES)}")
+        for k in LAUNCHES:
+            launches[k] += LAUNCHES[k]
+
+    import cv2
+    video = os.path.join(d, "clip.mp4")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                             (256, 256))
+    clip = smooth_images(VIDEO_FRAMES, torch.Generator().manual_seed(22))
+    for f in ((clip.numpy() + 1) * 127.5).round().clip(0, 255).astype(
+            np.uint8).transpose(0, 2, 3, 1):
+        writer.write(np.ascontiguousarray(f[..., ::-1]))
+    writer.release()
+    t0 = time.perf_counter()
+    n = process_video_cli.main(["--video", video, "--out",
+                                os.path.join(d, "clip_lmdb")])
+    video_s = time.perf_counter() - t0
+    clip_set = MultiResolutionDataset(os.path.join(d, "clip_lmdb"), 256)
+    check(n == len(clip_set) == VIDEO_FRAMES
+          and clip_set[VIDEO_FRAMES - 1].shape == (3, 256, 256),
+          f"process_video wrote {n} frames, read back {len(clip_set)}")
+    split = process_video_split(video, os.path.join(d, "clip_split"))
+    print(f"cli.process_video: {n} frames of 256 px in {video_s:.2f} s, "
+          f"{n / video_s:.1f} frames/s, read back; split over the same "
+          f"clip: {', '.join(f'{k} {v * 1e3 / n:.2f} ms' for k, v in split.items())}"
+          f" a frame, the CLI's rest (imports, set-up) "
+          f"{video_s - sum(split.values()):.3f} s; "
+          f"{n / (sum(split.values()) - split['LMDB write']):.1f} frames/s"
+          f" of the per-frame work alone")
+    shutil.rmtree(d)
+    print(f"visualize phase: {time.perf_counter() - start:.1f} s; track "
+          f"{n_frames / seconds:.1f} frames/s, a stage's idle share "
+          f"{idle:.4f}; launches {launches} [{card}]")
+    return launches, errs, (n_frames / seconds, idle, n / video_s)
 
 
 def main():
     dev, card = setup()
+    reals_dir = tempfile.mkdtemp()
+    reals = real_lmdb(os.path.join(reals_dir, "reals"))
     errs, times, bounds, library = kernels_vs_plain(dev)
     rates, peak_gib, launches, path_err, k1_path = serve(dev, card)
     errs = {k: max(errs[k], path_err[k]) for k in errs}
     train_rate, train_peak, train_launches, check_launches, train_errs, \
-        train_times = train(dev, card)
+        train_times, cats_vis = train(dev, card, reals)
     ar_rate, ar_peak, ar_launches, ar_check_launches, ar_errs, \
         splat_times, k2_ar = ar(dev, card)
     eval_launches, eval_errs = evaluate(dev, card)
     cluster_launches, cluster_errs, cars_rows, cluster_rates = cluster(
-        dev, card)
+        dev, card, reals)
+    vis_launches, vis_errs, vis_rates = visualize(dev, card, reals)
+    shutil.rmtree(reals_dir)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
-                 + list(eval_errs.items()) + list(cluster_errs.items())):
+                 + list(eval_errs.items()) + list(cluster_errs.items())
+                 + list(vis_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -3099,12 +3776,18 @@ def main():
           f"of a step {train_peak:.2f} GiB [{card}]")
     print(f"AR batch {AR_BATCH}: {ar_rate:.1f} frames/s, peak memory of a "
           f"batch {ar_peak:.2f} GiB [{card}]")
-    cars_rate, cars_peak, cls_rate, cls_peak, cls_ar_rate = cluster_rates
+    cars_rate, cars_peak, cls_rate, cls_peak, cls_ar_rate, cars_vis = \
+        cluster_rates
     print(f"cars step batch {CARS_BATCH}: {cars_rate:.2f} imgs/s, peak "
           f"memory of a step {cars_peak:.2f} GiB; classifier trainer batch "
           f"{CLS_BATCH}: {cls_rate:.2f} imgs/s, peak {cls_peak:.2f} GiB; AR "
           f"with the classifier at batch {AR_BATCH}: {cls_ar_rate:.1f} "
           f"frames/s [{card}]")
+    print(f"vis calls: cats {cats_vis[0]:.2f} s, peak {cats_vis[1]:.2f} GiB; "
+          f"cars {cars_vis[0]:.2f} s, peak {cars_vis[1]:.2f} GiB; "
+          f"vis_correspondence track {vis_rates[0]:.1f} frames/s, a "
+          f"stage's idle share {vis_rates[1]:.4f}; process_video "
+          f"{vis_rates[2]:.1f} frames/s [{card}]")
     for name, row in cars_rows.items():
         print(f"{name} at the cars step's shapes, per launch: kernel "
               f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} "
@@ -3126,15 +3809,18 @@ def main():
     # K2 on the inputs of an AR batch, where most of its main-path
     # launches are
     measured["grid_sample"] = k2_ar
-    # "launches" counts the main path only: serve, cli.train, the AR apps,
-    # the eval apps and the cluster phase's cars run, classifier CLI and AR
-    # apps, each run with every count zeroed just before it.
+    # "launches" counts the main path only: serve, cli.train (with its
+    # visuals), the AR apps, the eval apps, the cluster phase's cars run
+    # (with its visuals), classifier CLI and AR apps, and the visualize
+    # phase's vis_correspondence CLI runs, each run with every count zeroed
+    # just before it.
     # The backward kernels of the antialias=False form and of an image that
     # needs a gradient run only in the side checks, which count under
     # "check_launches" with the K6 launches of composed_propagate_object's
     # check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
-                + eval_launches[k] + cluster_launches[k] for k in LAUNCHES}
+                + eval_launches[k] + cluster_launches[k] + vis_launches[k]
+                for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):

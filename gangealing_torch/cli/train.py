@@ -1,7 +1,8 @@
 """Training CLI on one card (port of gangealing_tpu/cli/train.py).
 
     python -m gangealing_torch.cli.train --exp-name cats --ckpt cat.pt \
-        --load_G_only --padding_mode border --batch 40 --vis_every 0 [...]
+        --load_G_only --padding_mode border --batch 40 --vis_every 5000 \
+        --real_data_path data/lsun_cats [...]
 
 The flags are the JAX package's (``base_training_argparse``, the port's
 copy in cli/args.py) plus ``--device``, default ``cuda``: the run raises
@@ -9,17 +10,23 @@ when no card is visible, and ``--device cpu`` runs it on the CPU.
 ``--batch`` is the batch of the one device. ``--num_heads K`` and
 ``--flips`` train a clustering model (scripts/training/lsun_cars.sh); its
 cold start picks the K centroids by K-Means++, or takes the first K
-latents of the PCA pool with ``--debug``. What later slices port is
-refused with a message that names the slice: visuals (``--vis_every >
-0``), bfloat16, an explicit ``--scan_k > 1`` and ``--profile_dir``.
+latents of the PCA pool with ``--debug``. The training visuals are drawn
+every ``--vis_every`` iterations, the congealed reals from the LMDB at
+``--real_data_path`` (``--n_mean`` of them averaged, 200 with
+``--debug``); ``--profile_dir`` traces steps (``--profile_start``,
+``--profile_stop``] with ``torch.profiler``. What later slices port is
+refused with a message that names the slice: bfloat16 and an explicit
+``--scan_k > 1``.
 """
 
 import os
 
+import numpy as np
 import torch
 
 from gangealing_torch.apps.common import resolve_device
 from gangealing_torch.cli.args import base_training_argparse
+from gangealing_torch.data.dataset import DataLoader, MultiResolutionDataset
 from gangealing_torch.models.latent_learner import (
     LatentLearner, LatentLearnerConfig)
 from gangealing_torch.models.lpips import (
@@ -35,19 +42,18 @@ from gangealing_torch.utils.download import find_model
 
 def check_supported(parser, args):
     deferred = [
-        (args.vis_every > 0, "--vis_every > 0 (training visuals)",
-         "the visuals slice; pass --vis_every 0"),
         (args.compute_dtype == "bfloat16", "--compute_dtype bfloat16",
          "a later precision slice"),
         (args.scan_k > 1, "--scan_k > 1 (one step per dispatch here; a CUDA "
          "graph would take its place)", "a later performance slice"),
-        (args.profile_dir is not None, "--profile_dir",
-         "the profiling slice"),
     ]
     for refused, what, slice_name in deferred:
         if refused:
             parser.error(f"{what} is not ported to gangealing_torch yet; it "
                          f"comes with {slice_name}")
+    if args.profile_dir and args.profile_stop <= args.profile_start:
+        parser.error(f"--profile_stop ({args.profile_stop}) must be > "
+                     f"--profile_start ({args.profile_start})")
     if args.transform == ["similarity"] and args.tv_weight != 0:
         parser.error("TV loss is not supported for similarity-only STNs")
 
@@ -103,6 +109,24 @@ def load_perceptual(args, device, rng):
     return model, lambda x, y: loss(model, x, y)
 
 
+def real_images(args):
+    """The visuals' real images (gangealing_tpu/cli/train.py:154-165): a
+    loader over the LMDB at ``--real_data_path`` in batches of
+    ``--vis_batch_size``, and ``--n_sample`` images of it, the first or,
+    with ``--random_reals``, seeded random ones. (None, None) without a
+    path."""
+    if args.real_data_path is None:
+        return None, None
+    dset = MultiResolutionDataset(args.real_data_path,
+                                  resolution=args.real_size)
+    loader = DataLoader(dset, batch_size=args.vis_batch_size, shuffle=False,
+                        drop_last=False)
+    idx = (np.random.RandomState(args.seed).randint(
+        0, len(dset), args.n_sample) if args.random_reals
+        else np.arange(min(args.n_sample, len(dset))))
+    return loader, np.stack([dset[int(i)] for i in idx])
+
+
 def training_argparse():
     """The JAX package's training flags plus ``--device``."""
     parser = base_training_argparse()
@@ -118,6 +142,7 @@ def main(argv=None):
     parser = training_argparse()
     args = parser.parse_args(argv)
     check_supported(parser, args)
+    args.n_mean = 200 if args.debug else args.n_mean
     args.vis_batch_size //= args.num_heads
     device = resolve_device(args.device)
     results_path = os.path.join(args.results, args.exp_name)
@@ -153,13 +178,16 @@ def main(argv=None):
         cold_start_ll(ll, generator,
                       torch.Generator(device).manual_seed(args.seed * 8 + 3),
                       debug=args.debug, perceptual_fn=perceptual_fn)
-    if args.real_data_path is not None:
-        print("note: --real_data_path feeds the training visuals only, "
-              "which are not ported yet")
+    real_loader, sample_reals = real_images(args)
     train_gangealing(state, generator, perceptual_fn, results_path,
                      start_iter=start_iter, seed=args.seed,
                      log_every=args.log_every, ckpt_every=args.ckpt_every,
-                     args=args)
+                     args=args, real_loader=real_loader,
+                     sample_reals=sample_reals, n_sample=args.n_sample,
+                     n_mean=args.n_mean, vis_batch_size=args.vis_batch_size,
+                     vis_every=args.vis_every, profile_dir=args.profile_dir,
+                     profile_start=args.profile_start,
+                     profile_stop=args.profile_stop)
     return state, generator, perceptual, perceptual_fn
 
 

@@ -28,7 +28,7 @@ from gangealing_torch.models.stylegan2 import Generator
 from gangealing_torch.train.checkpoint import load_checkpoint, module_state
 from gangealing_torch.train.classifier_train import (
     ClassifierTrainer, train_cluster_classifier, warm_start_from_stn)
-from gangealing_torch.train.loop import ScalarWriter
+from gangealing_torch.train.visuals import GANgealingWriter
 from gangealing_torch.utils.download import find_model
 
 
@@ -72,7 +72,7 @@ def main(argv=None):
         warm_start_from_stn(classifier, stn.state_dict())
 
     results_path = os.path.join(args.results, args.exp_name)
-    writer = ScalarWriter(results_path)
+    writer = GANgealingWriter(results_path)
     try:
         metrics = train_cluster_classifier(
             ClassifierTrainer(cfg, classifier, generator, stn, ll,

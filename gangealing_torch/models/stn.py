@@ -420,13 +420,20 @@ class ComposedSTN(nn.Module):
     def forward(self, input_img, output_resolution=None, iters=1,
                 warp_policy="cartesian", alpha=None, padding_mode="border",
                 image_bounds=None, return_out_of_bounds=False,
-                input_img_for_sampling=None):
+                input_img_for_sampling=None, unfold=False,
+                return_intermediates=False):
         """Returns [out, grid, flow_or_matrix, sim_out, oob], as
         gangealing_tpu's composed_stn_forward; ``oob`` is None unless
         ``return_out_of_bounds``. Each stage regresses its warp from the
         previous stage's output and applies the chained warp to
         ``input_img_for_sampling`` (default ``input_img``), as training's
-        ``--sample_from_full_res`` does with G's full-resolution image."""
+        ``--sample_from_full_res`` does with G's full-resolution image.
+
+        ``unfold``: the last stage's out, grid and warp come back as
+        (N, K, ...), one entry a head, for the N input images (the JAX
+        heads' ``unfold``, models/stn.py:201-205, :303-306).
+        ``return_intermediates``: return instead the list of each stage's
+        (out, grid), the last one unfolded with ``unfold``."""
         out = input_img
         source = input_img if input_img_for_sampling is None \
             else input_img_for_sampling
@@ -435,6 +442,7 @@ class ComposedSTN(nn.Module):
         K = self.cfg.num_heads
         cartesian = isinstance(warp_policy, str) and warp_policy == "cartesian"
         sim_out = grid = fom = oob = None
+        intermediates = []
         for i, stn in enumerate(self.stns):
             last = i == n_minus_1
             wp_t = warp_policy
@@ -453,9 +461,16 @@ class ComposedSTN(nn.Module):
                 return_out_of_bounds=return_out_of_bounds and last)
             if K > 1 and cartesian and i == 0:
                 source = source.repeat_interleave(K, dim=0)
+            if unfold and last:
+                N = input_img.shape[0]
+                out, grid, fom = (t.reshape(N, -1, *t.shape[1:])
+                                  for t in (out, grid, fom))
             if i == 0:
                 sim_out = out
             warp = fom
+            intermediates.append((out, grid))
+        if return_intermediates:
+            return intermediates
         return [out, grid, fom, sim_out, oob]
 
 

@@ -92,13 +92,22 @@ def test_port_imports_no_jax():
             "a = prepare_data.prepare_data_argparse().parse_args(\n"
             "    ['--out', 'o', '--path', 'p'])\n"
             "assert a.size == '256' and not hasattr(a, 'device')\n"
+            "from gangealing_torch.cli import (process_video, "
+            "vis_correspondence)\n"
+            "a = vis_correspondence.vis_correspondence_argparse()"
+            ".parse_args(\n"
+            "    ['--ckpt', 'g.pt'])\n"
+            "assert a.mode == 'track' and a.device == 'cuda'\n"
+            "a = process_video.process_video_argparse().parse_args(\n"
+            "    ['--video', 'v.mp4', '--out', 'o'])\n"
+            "assert a.size == '256' and not hasattr(a, 'device')\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'gangealing_tpu')))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 48
+    assert len(modules) >= 54
 
 
 def test_port_sources_import_nothing_of_jax():

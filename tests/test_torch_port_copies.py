@@ -229,18 +229,23 @@ def _jax_cli_parser(module, monkeypatch):
     ("propagate_to_images", ["--ckpt", "s.pt", "-s", "2", "-o", "0.5"]),
     ("prepare_data", ["--out", "o", "--path", "p", "--n_worker", "3"]),
     ("train_cluster_classifier", ["--exp-name", "e", "--ckpt", "c.pt",
-                                  "--num_heads", "4", "--flips"])])
+                                  "--num_heads", "4", "--flips"]),
+    ("vis_correspondence", ["--ckpt", "s.pt", "--num_frames", "7",
+                            "--mode", "average", "--dset_indices", "1",
+                            "5"]),
+    ("process_video", ["--video", "v.mp4", "--out", "o", "--size",
+                       "128,256", "--pad", "zero"])])
 def test_eval_cli_parsers_match_jax(module, argv, monkeypatch):
     """The eval CLIs take the JAX package's flags, defaults and choices
-    and --device (default cuda); the dataset CLI, which runs on the
-    host, takes exactly the JAX package's."""
+    and --device (default cuda); the dataset CLIs, which run on the
+    host, take exactly the JAX package's."""
     ref = _jax_cli_parser(module, monkeypatch)
     ours = getattr(import_module(f"gangealing_torch.cli.{module}"),
                    f"{module}_argparse")()
     flags, ref_flags = _flags(ours), _flags(ref)
     parsed, ref_parsed = vars(ours.parse_args(argv)), vars(
         ref.parse_args(argv))
-    if module == "prepare_data":
+    if module in ("prepare_data", "process_video"):
         assert flags == ref_flags and parsed == ref_parsed
         return
     assert set(flags) - set(ref_flags) == {"device"}

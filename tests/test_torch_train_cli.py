@@ -2,7 +2,8 @@
 few iterations from a generator checkpoint in the reference schema, with
 the PCA cold start (``--debug``: 1000 latents), finite scalars, a
 checkpoint at ``--ckpt_every``, and ``--auto_resume`` picking it up; the
-options of later slices are refused with the slice's name."""
+training visuals and the profiler window write their files; the options
+of later slices are refused with the slice's name."""
 
 import dataclasses
 import json
@@ -50,11 +51,32 @@ def small_widths(monkeypatch):
     monkeypatch.setattr(tcli, "build_configs", capped)
 
 
-def test_cli_train_and_auto_resume(tmp_path, small_widths):
-    args = tcli.training_argparse().parse_args(_argv(tmp_path, 2))
+def _generator_checkpoint(tmp):
+    args = tcli.training_argparse().parse_args(_argv(tmp, 2))
     g = tg.Generator(tcli.build_configs(args).g,
                      generator=torch.Generator().manual_seed(0))
-    torch.save({"g_ema": g.state_dict()}, tmp_path / "g.pt")
+    torch.save({"g_ema": g.state_dict()}, tmp / "g.pt")
+
+
+def _real_lmdb(tmp):
+    """3 real images of 64 px in an LMDB."""
+    import io
+    import numpy as np
+    from PIL import Image
+    from gangealing_torch.data.lmdb_io import write_lmdb
+    items = {b"length": b"3"}
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        buf = io.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (64, 64, 3)).astype(
+            np.uint8)).save(buf, format="png")
+        items[f"64-{str(i).zfill(5)}".encode()] = buf.getvalue()
+    write_lmdb(str(tmp / "reals"), items)
+    return str(tmp / "reals")
+
+
+def test_cli_train_and_auto_resume(tmp_path, small_widths):
+    _generator_checkpoint(tmp_path)
 
     state, _, _, _ = tcli.main(_argv(tmp_path, 2))
     first = _scalars(tmp_path)
@@ -84,10 +106,38 @@ def test_cli_train_and_auto_resume(tmp_path, small_widths):
     (["--vis_every", "5"], "visuals"), (["--scan_k", "4"], "performance"),
     (["--compute_dtype", "bfloat16"], "precision"),
     (["--profile_dir", "p"], "profiling")])
-def test_cli_refuses_later_slices(tmp_path, capsys, extra, slice_name):
+def test_cli_refuses_later_slices(tmp_path, capsys, small_widths, extra,
+                                  slice_name):
     """The options of later slices are refused with the slice's name. The
     clustering options are taken, and give the JAX CLI's configuration
-    (tests/test_torch_cluster_apps.py trains with them)."""
+    (tests/test_torch_cluster_apps.py trains with them). So are the
+    visuals and the profiler window: a run of 2 iterations draws its
+    grids at 0 and 1 (the zero of the learning rate) and at 2
+    (``--vis_every 2``), the congealed reals from ``--real_data_path``;
+    ``--profile_dir`` writes a Chrome trace of its window (1, 2]."""
+    if slice_name in ("visuals", "profiling"):
+        _generator_checkpoint(tmp_path)
+        if slice_name == "visuals":
+            extra = ["--vis_every", "2", "--real_data_path",
+                     _real_lmdb(tmp_path), "--n_sample", "2",
+                     "--vis_batch_size", "2"]
+        else:
+            extra = ["--profile_dir", str(tmp_path / "p"),
+                     "--profile_start", "1", "--profile_stop", "2"]
+        tcli.main(_argv(tmp_path, 2, *extra))
+        run = os.listdir(tmp_path / "results" / "smoke")
+        if slice_name == "profiling":
+            traces = os.listdir(tmp_path / "p")
+            assert len(traces) == 1 and traces[0].endswith(".json")
+            assert not any(f.endswith(".png") for f in run)
+            return
+        for name in ("sample", "transformed_sample", "truncated_sample",
+                     "mean_transformed_sample",
+                     "EMA_transformed_real_sample",
+                     "mean_EMA_transformed_real_sample", "flow_real"):
+            assert {f"{name}_{str(i).zfill(7)}.png" for i in range(3)} <= \
+                set(run), name
+        return
     if slice_name == "cluster":
         from importlib import import_module
         jtrain = import_module("gangealing_tpu.cli.train")
