@@ -7,7 +7,8 @@ congeal_dataset and their CLIs, on LMDB datasets) through them; then train
 the LSUN-cars clustering configuration with its cluster visuals and its
 cluster classifier and run the AR apps with that classifier; then render
 the correspondence videos (vis_correspondence) and turn a video into an
-LMDB (process_video).
+LMDB (process_video); then train both configurations and serve the
+flagship with --compute_dtype bfloat16.
 
     python3 chip_smoke.py
 
@@ -70,7 +71,10 @@ Phases:
      share; and one step's loss and gradients on the card against the
      port's CPU path at batch 2, from the state cli.train wrote and from
      the identity init (TRAIN_GRAD_TOL, TRAIN_GRAD_L2_TOL), as are the
-     K1 and K3 launches of the trained state;
+     K1 and K3 launches of the trained state; and from both states the
+     same step in bfloat16 on the card against the CPU path (BF16_GATES:
+     loss terms and L2 held, the worst tensor printed beside its gate)
+     and against the card's float32 step (BF16_VS_F32);
   5. the AR object lenses (apps/mixed_reality.run_gangealing_on_video)
      with the flagship STN loaded through load_stn and a synthetic dense
      label (an opaque disc of radius 36 px in the 128 px congealed space,
@@ -168,7 +172,22 @@ Phases:
      once; python -m gangealing_torch.cli.process_video on 32 frames of
      256 px, read back, and its work split into decode, crop, PNG encode
      and the LMDB's write;
-  9. rates, and each kernel's device time (torch.profiler; K6's by CUDA
+  9. the precision phase (chip_smoke.py::precision): python -m
+     gangealing_torch.cli.train --compute_dtype bfloat16 (G's synthesis
+     and the perceptual trunk in bfloat16) on the cats flags at
+     TRAIN_BATCH and the cars flags at CARS_BATCH for BF16_ITERS
+     iterations each: K1 and K3 twice a step on float32 operands, held
+     against the plain versions, finite scalars, the last checkpoint
+     resumed; imgs/s over about 5 s in 4 parts and the peak memory
+     beside this run's float32 figures, the cats step's device time by
+     kernel group with the idle share; a batch-2 clustered bfloat16 step on the card
+     against the CPU path (BF16_CLUSTER_GATES, equal assignments but at
+     near ties of BF16_TIE, counted) and against the card's float32
+     step (printed); the flagship congeal forward with its encoders in
+     bfloat16 at batch 128: its two K1 launches held, its grids and
+     flows against the float32 forward's (BF16_CONGEAL_TOL), imgs/s and
+     its peak;
+ 10. rates, and each kernel's device time (torch.profiler; K6's by CUDA
      events around back-to-back calls, as a profile of it now and then
      misses launches) beside its plain version's, its bound on the card (the bytes of an image that
      these grids must read counted as the distinct texels their taps reach;
@@ -182,7 +201,8 @@ Phases:
      check (three kernels a call each), and the
      N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train, the AR apps, the
-     eval apps, the cluster phase and the visualize phase) and
+     eval apps, the cluster phase, the visualize phase and the precision
+     phase) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -231,6 +251,7 @@ from gangealing_torch.data.dataset import (
 from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
 from gangealing_torch.data.prepare import SPAIR_PERMUTATIONS, center_crop
 from gangealing_torch.models.latent_learner import LatentLearner
+from gangealing_torch.models.layers import dtype_of
 from gangealing_torch.models.lpips import make_perceptual_loss
 from gangealing_torch.models import stn as stn_ops
 from gangealing_torch.models.stn import (
@@ -1011,6 +1032,14 @@ def kernel_groups(prof, groups):
 
 CONV_GROUP = ("cuDNN convs and GEMMs", ("xmma", "gemm", "fft", "complex",
                                          "cudnn", "cutlass", "sm80_", "sm90_"))
+STEP_GROUPS = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
+               ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
+               ("depthwise FIR convs", ("conv_depthwise2d",)),
+               CONV_GROUP,
+               ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
+               ("reductions", ("reduce",)),
+               ("pads", ("pad",)),
+               ("gather, scatter and index", ("gather", "scatter", "index")))
 
 
 def print_groups(what, n, by_group, busy, span, other, card, top=0):
@@ -1192,23 +1221,29 @@ def real_lmdb(path):
         VIS_REALS, torch.Generator().manual_seed(21)).numpy())
 
 
-def train_argv(results, gpath, reals, trace_dir):
+def cats_argv(results, gpath, iters, *extra):
     """The reference's LSUN-cats run (scripts/training/lsun_cats_ssl.sh) on
-    one card at the global batch of 40, for TRAIN_ITERS iterations, with
-    its visuals every VIS_EVERY and a profiler window."""
+    one card at the global batch of 40 for ``iters`` iterations, a
+    checkpoint every 2."""
     return ["--exp-name", "smoke", "--results", results, "--ckpt", gpath,
             "--load_G_only", "--padding_mode", "border", "--tv_weight", "1000",
             "--loss_fn", "vgg_ssl", "--ndirs", "1", "--inject", "5",
             "--gen_size", "256", "--dim_latent", "512", "--n_mlp", "8",
             "--gen_channel_multiplier", "2", "--flow_size", "128",
             "--stn_channel_multiplier", "0.5", "--real_size", "256",
-            "--batch", str(TRAIN_BATCH), "--iter", str(TRAIN_ITERS),
-            "--ckpt_every", "2", "--vis_every", str(VIS_EVERY),
-            "--real_data_path", reals, "--n_mean", str(VIS_REALS),
-            "--n_sample", str(VIS_SAMPLES), "--vis_batch_size",
-            str(VIS_BATCH), "--profile_dir", trace_dir, "--profile_start",
-            str(PROFILE_WINDOW[0]), "--profile_stop", str(PROFILE_WINDOW[1]),
-            "--log_every", "1"]
+            "--batch", str(TRAIN_BATCH), "--iter", str(iters),
+            "--ckpt_every", "2", "--log_every", "1", *extra]
+
+
+def train_argv(results, gpath, reals, trace_dir):
+    """The cats run for TRAIN_ITERS iterations with its visuals every
+    VIS_EVERY and a profiler window."""
+    return cats_argv(
+        results, gpath, TRAIN_ITERS, "--vis_every", str(VIS_EVERY),
+        "--real_data_path", reals, "--n_mean", str(VIS_REALS),
+        "--n_sample", str(VIS_SAMPLES), "--vis_batch_size", str(VIS_BATCH),
+        "--profile_dir", trace_dir, "--profile_start",
+        str(PROFILE_WINDOW[0]), "--profile_stop", str(PROFILE_WINDOW[1]))
 
 
 @contextlib.contextmanager
@@ -1560,11 +1595,18 @@ def cli_run(dev, reals):
     print(f"scalars at iteration {TRAIN_ITERS}: {last}")
     ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
     check(ckpts == ["0000002.pt", "0000004.pt"], f"checkpoints {ckpts}")
+    check_resume(state, os.path.join(run_dir, "checkpoints", ckpts[-1]), dev)
+    shutil.rmtree(d)
+    return state, generator, perceptual, pfn, launches
+
+
+def check_resume(state, path, dev):
+    """The checkpoint at ``path`` resumed into a fresh state equals
+    ``state``: parameters, EMA and Adam moments."""
     cfg = state.cfg
     fresh = TrainState(cfg, ComposedSTN(cfg.t, device=dev),
                        LatentLearner(cfg.ll, device=dev))
-    train_ckpt.resume(fresh, train_ckpt.load_checkpoint(
-        os.path.join(run_dir, "checkpoints", ckpts[-1])))
+    train_ckpt.resume(fresh, train_ckpt.load_checkpoint(path))
     for a, b in ((fresh.t, state.t), (fresh.t_ema, state.t_ema),
                  (fresh.ll, state.ll)):
         for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
@@ -1575,10 +1617,8 @@ def cli_run(dev, reals):
         check(sa.keys() == sb.keys() and all(
             torch.equal(sa[i][m], sb[i][m]) for i in sa
             for m in ("exp_avg", "exp_avg_sq")), "resumed Adam state differs")
-    print(f"checkpoint {ckpts[-1]} resumed: parameters, EMA and Adam moments "
-          "equal")
-    shutil.rmtree(d)
-    return state, generator, perceptual, pfn, launches
+    print(f"checkpoint {os.path.basename(path)} resumed: parameters, EMA and "
+          "Adam moments equal")
 
 
 class GridRecorder:
@@ -1905,24 +1945,18 @@ def train(dev, card, reals):
               f"F.grid_sample{on} {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}) [{card}]")
 
-    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
-              ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
-              ("depthwise FIR convs", ("conv_depthwise2d",)),
-              CONV_GROUP,
-              ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
-              ("reductions", ("reduce",)),
-              ("pads", ("pad",)),
-              ("gather, scatter and index", ("gather", "scatter", "index")))
     step()
     torch.cuda.synchronize()
     prof = profiled(lambda: [step() for _ in range(2)])
     print_groups(f"step at batch {TRAIN_BATCH}, 2 steps", 2,
-                 *kernel_groups(prof, groups), card, top=8)
+                 *kernel_groups(prof, STEP_GROUPS), card, top=8)
 
-    card_vs_cpu_step(cfg, t_cli, ll_cli, generator, perceptual, dev,
-                     "trained state")
-    card_vs_cpu_step(cfg, t_id, state.ll, generator, perceptual, dev,
-                     "identity init")
+    for what, t, ll in (("trained state", t_cli, ll_cli),
+                        ("identity init", t_id, state.ll)):
+        f32_card, _ = card_vs_cpu_step(cfg, t, ll, generator, perceptual,
+                                       dev, what)
+        bf16_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what,
+                              f32_card)
     cycle = VIS_CYCLE * TRAIN_BATCH / rate
     print(f"cats vis call: {vis_s:.2f} s, peak {vis_peak:.2f} GiB; a "
           f"{VIS_CYCLE}-iteration cycle at {rate:.1f} imgs/s takes "
@@ -1945,7 +1979,7 @@ def step_batch2(cfg):
 def step_grads(cfg, t, ll, generator, perceptual, d, z, noise):
     """One step's loss terms and the gradients of every STN and ``ll``
     parameter on device ``d``, from copies of the modules."""
-    loss = make_perceptual_loss(cfg.loss_fn)
+    loss = make_perceptual_loss(cfg.loss_fn, dtype_of(cfg.compute_dtype))
     gen = copy.deepcopy(generator).to(d)
     vgg = copy.deepcopy(perceptual).to(d)
     st = TrainState(cfg, copy.deepcopy(t).to(d), copy.deepcopy(ll).to(d))
@@ -1973,7 +2007,8 @@ def compare_steps(card, cpu):
 
 def card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what):
     """One step's loss terms and gradients at batch 2, on the card and on
-    the port's CPU path, from the same STN ``t``, ``ll``, z and noise."""
+    the port's CPU path, from the same STN ``t``, ``ll``, z and noise.
+    Returns the card's run and the CPU path's."""
     z, noise = step_batch2(cfg)
     runs = [step_grads(cfg, t, ll, generator, perceptual, d, z, noise)
             for d in (dev, torch.device("cpu"))]
@@ -1986,6 +2021,7 @@ def card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what):
     check(worst[0] <= TRAIN_GRAD_TOL and l2 <= TRAIN_GRAD_L2_TOL,
           f"{what}: the gradients differ from the CPU path (worst tensor "
           f"{worst[1]} at {worst[0]:.3e}, all {l2:.3e} in L2)")
+    return runs
 
 
 def synthetic_label(size=128, radius=LABEL_RADIUS):
@@ -2898,7 +2934,7 @@ def cluster_step_batch2(cfg, seed):
 def cluster_step_grads(cfg, t, ll, generator, perceptual, d, z, noise):
     """One clustered step's loss terms, assignments and the gradients of
     every STN and ``ll`` parameter on device ``d``, from copies."""
-    loss = make_perceptual_loss(cfg.loss_fn)
+    loss = make_perceptual_loss(cfg.loss_fn, dtype_of(cfg.compute_dtype))
     gen = copy.deepcopy(generator).to(d)
     lp = copy.deepcopy(perceptual).to(d)
     st = TrainState(cfg, copy.deepcopy(t).to(d), copy.deepcopy(ll).to(d))
@@ -2913,7 +2949,7 @@ def cluster_step_grads(cfg, t, ll, generator, perceptual, d, z, noise):
 def cpu_distances(cfg, t, ll, generator, perceptual, z, noise):
     """The CPU path's distances of a batch-2 step: which rows are near
     ties."""
-    loss = make_perceptual_loss(cfg.loss_fn)
+    loss = make_perceptual_loss(cfg.loss_fn, dtype_of(cfg.compute_dtype))
     with torch.no_grad():
         return assign_fake_images_to_clusters(
             copy.deepcopy(generator).cpu(), copy.deepcopy(t).cpu(),
@@ -2921,22 +2957,27 @@ def cpu_distances(cfg, t, ll, generator, perceptual, z, noise):
             lambda x, y: loss(copy.deepcopy(perceptual).cpu(), x, y), z, 0.5,
             cfg.t.num_heads, cfg.flips, freeze_ll=cfg.freeze_ll,
             sample_from_full_res=cfg.sample_from_full_res,
-            padding_mode=cfg.padding_mode, noise=noise)[6]
+            padding_mode=cfg.padding_mode, noise=noise,
+            compute_dtype=dtype_of(cfg.compute_dtype))[6]
 
 
-def near_ties(distances):
-    """Rows whose two least distances are within NEAR_TIE relative."""
+def near_ties(distances, gap=NEAR_TIE):
+    """Rows whose two least distances are within ``gap`` relative."""
     d = distances.sort(dim=1).values
-    return ((d[:, 1] - d[:, 0]) / d[:, 0].abs() <= NEAR_TIE).nonzero()[:, 0]
+    return ((d[:, 1] - d[:, 0]) / d[:, 0].abs() <= gap).nonzero()[:, 0]
 
 
 def cluster_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev):
     """One clustered step at batch 2 (K = 4, flips) on the card and on the
     port's CPU path: equal assignments, loss terms 1e-4 relative, the
     gradients within TRAIN_GRAD_TOL (each tensor) and TRAIN_GRAD_L2_TOL
-    (all). An assignment that differs at a near tie of the CPU path's
-    distances is counted and printed, and the step is taken again with the
-    next z (up to 3); any other difference fails."""
+    (all); in bfloat16 within BF16_CLUSTER_GATES through ``bf16_check``.
+    An assignment that differs at a near tie of the CPU path's distances
+    (NEAR_TIE, BF16_TIE) is counted and printed, and the step is taken
+    again with the next z (up to 3); any other difference fails. Returns
+    the count and the card's run with its z seed."""
+    bf16 = cfg.compute_dtype == "bfloat16"
+    gap = BF16_TIE if bf16 else NEAR_TIE
     ties = 0
     for seed in (7, 8, 9):
         z, noise = cluster_step_batch2(cfg, seed)
@@ -2945,28 +2986,33 @@ def cluster_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev):
         differ = (runs[0][2] != runs[1][2]).nonzero()[:, 0]
         if len(differ):
             near = set(near_ties(cpu_distances(
-                cfg, t, ll, generator, perceptual, z, noise)).tolist())
-            print(f"card vs CPU path, a clustered step at batch 2 (z seed "
-                  f"{seed}): assignments {runs[0][2].tolist()} vs "
-                  f"{runs[1][2].tolist()}, rows {differ.tolist()} differ, "
-                  f"near ties (within {NEAR_TIE} relative) {sorted(near)}")
+                cfg, t, ll, generator, perceptual, z, noise), gap).tolist())
+            print(f"card vs CPU path, a {cfg.compute_dtype} clustered step "
+                  f"at batch 2 (z seed {seed}): assignments "
+                  f"{runs[0][2].tolist()} vs {runs[1][2].tolist()}, rows "
+                  f"{differ.tolist()} differ, near ties (within {gap} "
+                  f"relative) {sorted(near)}")
             check(set(differ.tolist()) <= near, "the clustered step's "
                   "assignments differ from the CPU path away from a tie")
             ties += len(differ)
             continue
+        what = (f"a {cfg.compute_dtype} clustered step at batch 2, K "
+                f"{cfg.t.num_heads}, flips (z seed {seed}), assignments "
+                f"{runs[0][2].tolist()} equal, assignments that differed at "
+                f"a near tie before this z: {ties}")
+        if bf16:
+            bf16_check(runs[0][:2], runs[1][:2], BF16_CLUSTER_GATES, what)
+            return ties, (seed, runs[0])
         rel, worst, l2 = compare_steps(runs[0][:2], runs[1][:2])
-        print(f"card vs CPU path, a clustered step at batch 2, K "
-              f"{cfg.t.num_heads}, flips (z seed {seed}): assignments "
-              f"{runs[0][2].tolist()} equal; loss terms {runs[0][0]} vs "
+        print(f"card vs CPU path, {what}; loss terms {runs[0][0]} vs "
               f"{runs[1][0]} (relative {rel:.3e}); worst gradient "
               f"{worst[1]} at {worst[0]:.3e} of its largest value; all "
-              f"gradients {l2:.3e} in relative L2 norm; assignments that "
-              f"differed at a near tie before this z: {ties}")
+              f"gradients {l2:.3e} in relative L2 norm")
         check(rel <= 1e-4, "the clustered step's loss terms differ from the "
               "CPU path")
         check(worst[0] <= TRAIN_GRAD_TOL and l2 <= TRAIN_GRAD_L2_TOL,
               "the clustered step's gradients differ from the CPU path")
-        return ties
+        return ties, (seed, runs[0])
     raise AssertionError("three clustered steps each met a near tie")
 
 
@@ -3134,19 +3180,11 @@ def cars_train(dev, card, d, batch, reals):
           f"{cycle:.0f} s, the vis call {vis[0][1] / cycle:.4%} of it "
           f"[{card}]")
     errs, rows = cars_kernels(state, step, card)
-    groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
-              ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
-              ("depthwise FIR convs", ("conv_depthwise2d",)),
-              CONV_GROUP,
-              ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
-              ("reductions", ("reduce",)),
-              ("pads", ("pad",)),
-              ("gather, scatter and index", ("gather", "scatter", "index")))
     prof = profiled(lambda: step())
     print_groups(f"step of the cars run at batch {batch}, 1 step", 1,
-                 *kernel_groups(prof, groups), card, top=8)
-    ties = cluster_card_vs_cpu_step(cfg, t_cli, ll_cli, generator,
-                                    perceptual, dev)
+                 *kernel_groups(prof, STEP_GROUPS), card, top=8)
+    ties, _ = cluster_card_vs_cpu_step(cfg, t_cli, ll_cli, generator,
+                                       perceptual, dev)
     del t_cli, ll_cli
     return (state, generator, perceptual, pfn, ckpt, launches, rate, peak,
             errs, rows, ties, vis[0][1:3])
@@ -3412,6 +3450,334 @@ def cluster(dev, card, reals):
           f"{launches} [{card}]")
     return launches, errs, rows, (rate, peak, cls_rate, cls_peak, ar_rate,
                                   cars_vis)
+
+
+# The precision phase: --compute_dtype bfloat16, the JAX package's training
+# precision (both G passes' synthesis and the perceptual trunk in bfloat16;
+# the STN, the warps and their kernels in float32), on the cats run at
+# TRAIN_BATCH and the cars run at CARS_BATCH, each for BF16_ITERS
+# iterations of cli.train and then timed as the float32 runs are; and a
+# served congeal forward at batch 128 with ComposedSTNConfig.compute_dtype
+# "bfloat16" (the encoders' convs in bfloat16). The gates were set from the
+# CPU tests' readings (tests/test_torch_bf16.py; PERF.md) before the first
+# card call. BF16_GATES, BF16_CLUSTER_GATES: a batch-2 bfloat16 step, cats
+# and cars, on the card against the port's bfloat16 CPU path (loss terms
+# relative, each gradient tensor over its largest value, all gradients in
+# relative L2): the gates of the port's bfloat16 steps against JAX's on
+# the CPU (unimodal, clustered); BF16_TIE, the relative gap of two
+# distances under which two bfloat16 paths may assign a fake apart, is
+# that test's. The cats step is held where the float32 one is (train: the
+# state the float32 cli.train run wrote, the identity init). Its tensor
+# gate fails on the card (ROADMAP Queue 3, PERF.md): its worst tensor is
+# printed beside the gate and not held; its loss terms and L2 are held.
+# BF16_VS_F32: the cats step in bfloat16 on the card against its own
+# float32 step (loss terms, all gradients in L2), as the CPU test holds the
+# port's. BF16_CONGEAL_TOL: the bfloat16 congeal forward's grids and flows
+# against the float32 forward's, on smooth images (its images printed).
+BF16_ITERS = 2
+BF16_TIMED = 16  # cats steps in the timed window (about 5.6 s in bf16)
+BF16_TIE = 2e-2
+BF16_GATES = (1e-2, 0.1, 3e-2)
+BF16_CLUSTER_GATES = (1e-2, 0.25, 8e-2)
+BF16_VS_F32 = (5e-2, 0.25)
+BF16_CONGEAL_TOL = 0.1
+
+
+def bf16_check(card, cpu, gates, what, hold_tensors=True):
+    """A bfloat16 step's (loss terms, gradients) on the card against the
+    CPU path's: loss terms within ``gates[0]`` relative, each gradient
+    tensor within ``gates[1]`` of its largest value, all gradients within
+    ``gates[2]`` in relative L2 norm. With ``hold_tensors`` False the
+    worst tensor is printed beside its gate and not held."""
+    term_tol, grad_tol, l2_tol = gates
+    rel, worst, l2 = compare_steps(card, cpu)
+    over = worst[0] > grad_tol
+    held = "" if hold_tensors else ", printed, not held"
+    print(f"card vs CPU path, {what}: loss terms {card[0]} vs {cpu[0]} "
+          f"(relative {rel:.3e}, gate {term_tol}); worst gradient "
+          f"{worst[1]} at {worst[0]:.3e} of its largest value "
+          f"({'OVER' if over else 'within'} its gate {grad_tol}{held}); all "
+          f"gradients {l2:.3e} in relative L2 norm (gate {l2_tol})")
+    check(rel <= term_tol, f"{what}: a loss term differs from the CPU path")
+    check(l2 <= l2_tol, f"{what}: the gradients differ from the CPU path")
+    check(not (hold_tensors and over), f"{what}: a gradient tensor differs "
+          "from the CPU path")
+
+
+def bf16_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what,
+                          f32_card):
+    """The batch-2 cats step of ``card_vs_cpu_step`` in bfloat16, on the
+    card against the CPU path within BF16_GATES (the worst tensor printed,
+    not held), and against the card's float32 step ``f32_card`` (same
+    state, z and noise) within BF16_VS_F32."""
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    z, noise = step_batch2(cfg)
+    card, cpu = [step_grads(bf16, t, ll, generator, perceptual, d, z, noise)
+                 for d in (dev, torch.device("cpu"))]
+    bf16_check(card, cpu, BF16_GATES,
+               f"one bfloat16 train step from the {what} at batch 2",
+               hold_tensors=False)
+    rel, worst, l2 = compare_steps(card, f32_card)
+    print(f"card, that bfloat16 step against its float32 one: loss terms "
+          f"relative {rel:.3e}; worst gradient {worst[1]} at {worst[0]:.3e} "
+          f"of its largest value; all gradients {l2:.3e} in relative L2 "
+          f"norm (gates {BF16_VS_F32[0]}, {BF16_VS_F32[1]} in L2)")
+    check(rel <= BF16_VS_F32[0] and l2 <= BF16_VS_F32[1],
+          f"{what}: the bfloat16 step strays from the float32 one")
+
+
+def operand_dtypes(calls):
+    """The dtypes of the tensors that recorded kernel calls took."""
+    return {t.dtype for args, _ in calls for a in args
+            for t in (a if isinstance(a, tuple) else (a,))
+            if torch.is_tensor(t)}
+
+
+def bf16_cli(argv, results, exp, iters, dev):
+    """python -m gangealing_torch.cli.train in process on ``argv`` (with
+    --compute_dtype bfloat16): K1 and K3 twice a step and nothing else,
+    finite scalars, the last checkpoint resumed into a fresh state.
+    Returns the run's state, G, perceptual model and function, and its
+    launches."""
+    zero_launches()
+    t0 = time.perf_counter()
+    state, generator, perceptual, pfn = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    print(f"cli.train --compute_dtype bfloat16, the {exp} run: {iters} "
+          f"iterations at batch {state.cfg.batch} with the cold start in "
+          f"{seconds:.1f} s; launches {launches}")
+    check(state.cfg.compute_dtype == "bfloat16", f"{exp}: cli.train ran "
+          f"{state.cfg.compute_dtype}")
+    check(launches["mipmap_sample"] == 2 * iters
+          and launches["mipmap_sample_dcoords"] == 2 * iters
+          and sum(launches.values()) == 4 * iters,
+          f"{exp}: expected 2 K1 and 2 K3 launches per bfloat16 step")
+    run_dir = os.path.join(results, exp)
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f if line.strip()]
+    check({s["step"] for s in scalars} == set(range(1, iters + 1))
+          and all(math.isfinite(s["value"]) for s in scalars),
+          f"{exp}: the bfloat16 run's scalars miss a step or are not finite")
+    check_resume(state, os.path.join(run_dir, "checkpoints",
+                                     f"{str(iters).zfill(7)}.pt"), dev)
+    return state, generator, perceptual, pfn, launches
+
+
+def bf16_kernels(step, what):
+    """Each K1 and K3 launch of one bfloat16 step held against its plain
+    version; every operand they took is float32."""
+    with recorded(mipmap_ops, "mipmap_sample") as k1, \
+            recorded(mipmap_ops, "mipmap_sample_dcoords") as k3:
+        step()
+    check(len(k1) == 2 and len(k3) == 2, f"a bfloat16 {what} step did not "
+          "launch K1 and K3 twice")
+    dtypes = operand_dtypes(k1) | operand_dtypes(k3)
+    check(dtypes == {torch.float32}, f"K1 or K3 took {dtypes} in a "
+          f"bfloat16 {what} step")
+    errs = {}
+    with torch.no_grad():
+        hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
+             errs)
+    hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), errs)
+    print(f"K1 and K3 launches of a bfloat16 {what} step, float32 operands, "
+          f"held against the plain versions: max abs err K1 "
+          f"{errs['mipmap_sample']:.3e}, K3 "
+          f"{errs['mipmap_sample_dcoords']:.3e}")
+    return errs
+
+
+def bf16_cats(dev, card, d, gpath, f32_rate, f32_peak):
+    """The cats run in bfloat16: cli.train, its kernels, imgs/s and the
+    peak of a step beside this run's float32 ones, and where the time
+    goes (its batch-2 gates are held in ``train``)."""
+    results = os.path.join(d, "cats_bf16")
+    state, generator, _, pfn, launches = bf16_cli(
+        cats_argv(results, gpath, BF16_ITERS, "--vis_every", "0",
+                  "--compute_dtype", "bfloat16"),
+        results, "smoke", BF16_ITERS, dev)
+    cfg = state.cfg
+    rng = torch.Generator(dev).manual_seed(5)
+
+    def step():
+        z = torch.randn(TRAIN_BATCH, cfg.g.style_dim, generator=rng,
+                        device=dev)
+        return train_step(state, generator, pfn, z, 0.5, 1e-3, 1e-2, rng=rng)
+
+    errs = bf16_kernels(step, "cats")
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    part = BF16_TIMED // SUBWINDOWS
+    ms = timed_parts(lambda w: [step() for _ in range(part)],
+                     lambda m: check(all(math.isfinite(float(v))
+                                         for v in m.values()),
+                                     "a bfloat16 cats step is not finite"))
+    rate = TRAIN_BATCH * BF16_TIMED / (sum(ms) / 1e3)
+    parts = ", ".join(f"{TRAIN_BATCH * part / (t / 1e3):.1f}" for t in ms)
+    print(f"bfloat16 cats step, batch {TRAIN_BATCH}: {rate:.1f} imgs/s over "
+          f"{BF16_TIMED} steps in {sum(ms) / 1e3:.2f} s (in {SUBWINDOWS} "
+          f"parts: {parts}), "
+          f"peak memory of a step {peak:.2f} GiB; float32 in this run "
+          f"{f32_rate:.1f} imgs/s, {f32_peak:.2f} GiB [{card}]")
+    prof = profiled(lambda: [step() for _ in range(2)])
+    print_groups(f"step at batch {TRAIN_BATCH} in bfloat16, 2 steps", 2,
+                 *kernel_groups(prof, STEP_GROUPS), card, top=8)
+    return launches, errs, rate, peak
+
+
+def bf16_cars(dev, card, d, gpath, f32_rate, f32_peak):
+    """The cars run in bfloat16 at CARS_BATCH: cli.train, its kernels,
+    imgs/s and the peak over the timed steps beside this run's float32
+    ones, and the batch-2 clustered gate; the card's bfloat16 step against
+    its float32 one printed."""
+    results = os.path.join(d, "cars_bf16")
+    state, generator, perceptual, pfn, launches = bf16_cli(
+        cars_argv(results, gpath, CARS_BATCH, CARS_ITERS, "--load_G_only",
+                  "--compute_dtype", "bfloat16"),
+        results, "cars", CARS_ITERS, dev)
+    cfg = state.cfg
+    t_cli, ll_cli = copy.deepcopy(state.t), copy.deepcopy(state.ll)
+    rng = torch.Generator(dev).manual_seed(5)
+
+    def step():
+        z = torch.randn(CARS_BATCH, cfg.g.style_dim, generator=rng,
+                        device=dev)
+        m = train_step(state, generator, pfn, z, 0.5, 1e-3, 1e-2, rng=rng)
+        m.pop("assignments")
+        return m
+
+    errs = bf16_kernels(step, "cars")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    part = CARS_TIMED // SUBWINDOWS
+    ms = timed_parts(lambda w: [step() for _ in range(part)],
+                     lambda m: check(all(math.isfinite(float(v))
+                                         for v in m.values()),
+                                     "a bfloat16 cars step is not finite"))
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    rate = CARS_BATCH * CARS_TIMED / (sum(ms) / 1e3)
+    parts = ", ".join(f"{CARS_BATCH * part / (t / 1e3):.2f}" for t in ms)
+    print(f"bfloat16 cars step, batch {CARS_BATCH}: {rate:.2f} imgs/s over "
+          f"{CARS_TIMED} steps in {sum(ms) / 1e3:.2f} s (in {SUBWINDOWS} "
+          f"parts: {parts}), "
+          f"{sum(ms) / CARS_TIMED:.1f} ms a step, peak memory of a step "
+          f"{peak:.2f} GiB of {total:.2f}; float32 in this run "
+          f"{f32_rate:.2f} imgs/s, {f32_peak:.2f} GiB [{card}]")
+    ties, (seed, bf16_run) = cluster_card_vs_cpu_step(
+        cfg, t_cli, ll_cli, generator, perceptual, dev)
+    z, noise = cluster_step_batch2(cfg, seed)
+    f32_run = cluster_step_grads(
+        dataclasses.replace(cfg, compute_dtype="float32"), t_cli, ll_cli,
+        generator, perceptual, dev, z, noise)
+    same = torch.equal(bf16_run[2], f32_run[2])
+    rel, worst, l2 = compare_steps(bf16_run[:2], f32_run[:2])
+    print(f"card, one bfloat16 clustered step against the float32 step from "
+          f"the same state at batch 2 (z seed {seed}): assignments "
+          f"{bf16_run[2].tolist()} vs {f32_run[2].tolist()}; loss terms "
+          f"relative {rel:.3e}; worst gradient {worst[1]} at {worst[0]:.3e} "
+          f"of its largest value; all gradients {l2:.3e} in relative L2 "
+          f"norm{'' if same else ' (other assignments: not comparable)'} "
+          f"[{card}]")
+    return launches, errs, rate, peak, ties
+
+
+def bf16_congeal(dev, card, f32_rate):
+    """The flagship's congeal forward with its encoders in bfloat16 at
+    batch 128 on smooth images: its two K1 launches on float32 operands
+    held against the plain version, its images, grids and flows against
+    the float32 forward's, imgs/s over about 5 s beside the float32 rate
+    of this run's serve phase. Returns its launches, errors and rate."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "stn.pt")
+        make_checkpoint(path)
+        model, cfg = load_stn(path, supersize=256, device=dev)
+    b = 128
+    bf16 = ComposedSTN(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                       device=dev).eval()
+    bf16.load_state_dict(model.state_dict())
+    requests = [smooth_images(b, torch.Generator().manual_seed(30 + i)).to(dev)
+                for i in range(REQUESTS)]
+    with recorded(mipmap_ops, "mipmap_sample") as k1:
+        got = congeal(bf16, requests[0])
+    check(len(k1) == 2, "the bfloat16 congeal forward did not launch K1 "
+          "twice")
+    check(operand_dtypes(k1) == {torch.float32}, "K1 took "
+          f"{operand_dtypes(k1)} in the bfloat16 congeal forward")
+    errs = {}
+    with torch.no_grad():
+        hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
+             errs)
+    ref = congeal(model, requests[0])
+    diff = [float((a - r).abs().max()) for a, r in zip(got[:3], ref[:3])]
+    print(f"bfloat16 congeal forward at batch {b} against the float32 one, "
+          f"smooth images: out {diff[0]:.3e}, grid {diff[1]:.3e}, flow "
+          f"{diff[2]:.3e} (grid and flow gated at {BF16_CONGEAL_TOL}); its "
+          f"K1 launches, float32 operands, held: max abs err "
+          f"{errs['mipmap_sample']:.3e}")
+    check(max(diff[1:]) <= BF16_CONGEAL_TOL,
+          "the bfloat16 congeal forward strays from the float32 one")
+    del got, ref, k1
+    zero_launches()
+    check_outputs(congeal(bf16, requests[1]), b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    check_outputs(congeal(bf16, requests[2]), b)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    part = TIMED[b] // SUBWINDOWS
+    ms = timed_parts(
+        lambda w: [congeal(bf16, requests[(w * part + i) % REQUESTS])
+                   for i in range(part)],
+        lambda r: check_outputs(r, b))
+    launches = dict(LAUNCHES)
+    check(launches["mipmap_sample"] == 2 * (TIMED[b] + 2)
+          and sum(launches.values()) == launches["mipmap_sample"],
+          f"the bfloat16 congeal forwards launched {launches}")
+    rate = b * TIMED[b] / (sum(ms) / 1e3)
+    print(f"bfloat16 congeal batch {b}: {rate:.1f} imgs/s over {TIMED[b]} "
+          f"requests in {sum(ms) / 1e3:.2f} s (in {SUBWINDOWS} parts: "
+          f"{', '.join(f'{b * part / (t / 1e3):.1f}' for t in ms)}), peak "
+          f"memory of a request {peak:.2f} GiB; float32 in this run "
+          f"{f32_rate:.1f} imgs/s [{card}]")
+    return launches, errs, rate
+
+
+def precision(dev, card, f32):
+    """The precision phase. ``f32``: this run's float32 figures (cats
+    imgs/s and peak, cars imgs/s and peak, congeal imgs/s at 128) to print
+    beside. Returns the main path's launches (each part counted from zero
+    just before it), the kernels' errors and the bfloat16 figures."""
+    start = time.perf_counter()
+    d = tempfile.mkdtemp()
+    gpath = os.path.join(d, "g.pt")
+    gen = Generator(GeneratorConfig(),
+                    generator=torch.Generator().manual_seed(3))
+    torch.save({"g_ema": gen.state_dict()}, gpath)
+    del gen
+    cats_launches, errs, cats_rate, cats_peak = bf16_cats(
+        dev, card, d, gpath, *f32[:2])
+    cars_launches, cars_errs, cars_rate, cars_peak, ties = bf16_cars(
+        dev, card, d, gpath, *f32[2:4])
+    congeal_launches, congeal_errs, congeal_rate = bf16_congeal(
+        dev, card, f32[4])
+    shutil.rmtree(d)
+    for e in (cars_errs, congeal_errs):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    launches = {k: cats_launches[k] + cars_launches[k] + congeal_launches[k]
+                for k in LAUNCHES}
+    print(f"precision phase: {time.perf_counter() - start:.1f} s; bfloat16 "
+          f"cats {cats_rate:.1f} imgs/s, peak {cats_peak:.2f} GiB; cars "
+          f"{cars_rate:.2f} imgs/s, peak {cars_peak:.2f} GiB; congeal "
+          f"{congeal_rate:.1f} imgs/s; near-tie assignments {ties}; "
+          f"launches {launches} [{card}]")
+    return launches, errs, (cats_rate, cats_peak, cars_rate, cars_peak,
+                            congeal_rate)
 
 
 # The visualize phase: python -m gangealing_torch.cli.vis_correspondence in
@@ -3745,6 +4111,7 @@ def visualize(dev, card, reals):
 
 
 def main():
+    start = time.perf_counter()
     dev, card = setup()
     reals_dir = tempfile.mkdtemp()
     reals = real_lmdb(os.path.join(reals_dir, "reals"))
@@ -3760,11 +4127,16 @@ def main():
         dev, card, reals)
     vis_launches, vis_errs, vis_rates = visualize(dev, card, reals)
     shutil.rmtree(reals_dir)
+    cars_rate, cars_peak, cls_rate, cls_peak, cls_ar_rate, cars_vis = \
+        cluster_rates
+    bf16_launches, bf16_errs, bf16_rates = precision(
+        dev, card, (train_rate, train_peak, cars_rate, cars_peak,
+                    rates[128][0]))
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
                  + list(eval_errs.items()) + list(cluster_errs.items())
-                 + list(vis_errs.items())):
+                 + list(vis_errs.items()) + list(bf16_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -3776,8 +4148,6 @@ def main():
           f"of a step {train_peak:.2f} GiB [{card}]")
     print(f"AR batch {AR_BATCH}: {ar_rate:.1f} frames/s, peak memory of a "
           f"batch {ar_peak:.2f} GiB [{card}]")
-    cars_rate, cars_peak, cls_rate, cls_peak, cls_ar_rate, cars_vis = \
-        cluster_rates
     print(f"cars step batch {CARS_BATCH}: {cars_rate:.2f} imgs/s, peak "
           f"memory of a step {cars_peak:.2f} GiB; classifier trainer batch "
           f"{CLS_BATCH}: {cls_rate:.2f} imgs/s, peak {cls_peak:.2f} GiB; AR "
@@ -3788,6 +4158,13 @@ def main():
           f"vis_correspondence track {vis_rates[0]:.1f} frames/s, a "
           f"stage's idle share {vis_rates[1]:.4f}; process_video "
           f"{vis_rates[2]:.1f} frames/s [{card}]")
+    print(f"bfloat16: cats step batch {TRAIN_BATCH} {bf16_rates[0]:.1f} "
+          f"imgs/s, peak {bf16_rates[1]:.2f} GiB (float32 {train_rate:.1f}, "
+          f"{train_peak:.2f}); cars step batch {CARS_BATCH} "
+          f"{bf16_rates[2]:.2f} imgs/s, peak {bf16_rates[3]:.2f} GiB "
+          f"(float32 {cars_rate:.2f}, {cars_peak:.2f}); congeal batch 128 "
+          f"{bf16_rates[4]:.1f} imgs/s (float32 {rates[128][0]:.1f}) "
+          f"[{card}]")
     for name, row in cars_rows.items():
         print(f"{name} at the cars step's shapes, per launch: kernel "
               f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} "
@@ -3811,16 +4188,17 @@ def main():
     measured["grid_sample"] = k2_ar
     # "launches" counts the main path only: serve, cli.train (with its
     # visuals), the AR apps, the eval apps, the cluster phase's cars run
-    # (with its visuals), classifier CLI and AR apps, and the visualize
-    # phase's vis_correspondence CLI runs, each run with every count zeroed
-    # just before it.
+    # (with its visuals), classifier CLI and AR apps, the visualize
+    # phase's vis_correspondence CLI runs, and the precision phase's
+    # bfloat16 cli.train runs and congeal forwards, each run with every
+    # count zeroed just before it.
     # The backward kernels of the antialias=False form and of an image that
     # needs a gradient run only in the side checks, which count under
     # "check_launches" with the K6 launches of composed_propagate_object's
     # check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
                 + eval_launches[k] + cluster_launches[k] + vis_launches[k]
-                for k in LAUNCHES}
+                + bf16_launches[k] for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):
@@ -3834,6 +4212,7 @@ def main():
               f"{bound_ms:.4f} ms: a timing fault")
     print(f"torch.profiler: {WINDOWS['taken']} windows, "
           f"{WINDOWS['retaken']} of them taken again for a missed kernel")
+    print(f"the smoke took {time.perf_counter() - start:.1f} s")
     print(card)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -9,7 +9,10 @@ package's parameter dicts. Derived buffers (the blur FIR taps) are not
 persistent.
 
 Every constructor takes the ``device`` to build on and the
-``torch.Generator`` its random weights are drawn from.
+``torch.Generator`` its random weights are drawn from. Parameters are
+float32; the convolutions run in the dtype of their input, with each
+weight, style, demodulation, noise and bias cast to it where it is used,
+at the JAX package's rounding points (its ``compute_dtype``).
 """
 
 import math
@@ -19,9 +22,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from gangealing_torch.ops.resample import (
-    blur, fused_leaky_relu, make_kernel, upfirdn2d, upsample2x)
+    blur, fused_leaky_relu, make_kernel, rounded_like, upfirdn2d, upsample2x)
 
 BLUR_KERNEL = (1, 3, 3, 1)
+
+
+def dtype_of(name):
+    """The dtype a ``--compute_dtype`` name runs the convolutions in, as
+    the JAX package reads the name: bfloat16 for 'bfloat16'; None for
+    'float32' (or None), which leaves them in their input's dtype."""
+    return torch.bfloat16 if name == "bfloat16" else None
+
+
+def cast_to(x, dtype):
+    """``x`` in ``dtype``; as it is for None."""
+    return x if dtype is None else x.to(dtype)
+
+
+def float32_or_wider(x):
+    """``x`` in float32, or in its own dtype where that is wider."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def randn(shape, generator=None, device=None):
@@ -74,8 +94,9 @@ class EqualConv2d(nn.Module):
         self.padding = padding
 
     def forward(self, x):
-        return F.conv2d(x, self.weight * self.scale, bias=self.bias,
-                        stride=self.stride, padding=self.padding)
+        return F.conv2d(x, (self.weight * self.scale).to(x.dtype),
+                        bias=self.bias, stride=self.stride,
+                        padding=self.padding)
 
 
 class Blur(nn.Module):
@@ -138,7 +159,8 @@ class ResBlock(nn.Module):
                               activate=False, bias=False, **kw)
 
     def forward(self, x):
-        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+        return ((self.conv2(self.conv1(x)) + self.skip(x))
+                / rounded_like(math.sqrt(2), x))
 
 
 class ModulatedConv2d(nn.Module):
@@ -172,15 +194,16 @@ class ModulatedConv2d(nn.Module):
         if self.normalize:
             weight = weight * math.sqrt(1.0 / self.fan_in) / weight.abs().amax(
                 dim=(1, 2, 3), keepdim=True)
-        xs = x * s[:, :, None, None]
+        xs = x * s[:, :, None, None].to(x.dtype)
+        w_x = weight.to(x.dtype)
         if self.upsample:
-            out = F.conv_transpose2d(xs, weight.transpose(0, 1), stride=2)
+            out = F.conv_transpose2d(xs, w_x.transpose(0, 1), stride=2)
         else:
-            out = F.conv2d(xs, weight, padding=kh // 2)
+            out = F.conv2d(xs, w_x, padding=kh // 2)
         if self.demodulate:
             wsq = (weight ** 2).sum(dim=(2, 3))  # (O, I)
             demod = torch.rsqrt((s ** 2) @ wsq.T + 1e-8)  # (N, O)
-            out = out * demod[:, :, None, None]
+            out = out * demod[:, :, None, None].to(out.dtype)
         if self.upsample:
             p = (len(BLUR_KERNEL) - 2) - (kh - 1)
             out = blur(out, BLUR_KERNEL, pad=((p + 1) // 2 + 1, p // 2 + 1),
@@ -194,7 +217,7 @@ class NoiseInjection(nn.Module):
         self.weight = nn.Parameter(torch.zeros(1, device=device))
 
     def forward(self, x, noise):
-        return x + self.weight * noise
+        return x + self.weight.to(x.dtype) * noise.to(x.dtype)
 
 
 class StyledConv(nn.Module):
@@ -219,7 +242,9 @@ class StyledConv(nn.Module):
 
 class ToRGB(nn.Module):
     """1x1 modulated conv without demodulation, plus a bias and the
-    blur-upsampled skip (networks.py:353-372)."""
+    blur-upsampled skip (networks.py:353-372). The bias is added in the
+    input's dtype and the skip summed in float32 (layers.py:337-340 of
+    the JAX package)."""
 
     def __init__(self, in_ch, style_dim, *, device=None, generator=None):
         super().__init__()
@@ -228,9 +253,9 @@ class ToRGB(nn.Module):
         self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1, device=device))
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias
+        out = self.conv(x, style) + self.bias.to(x.dtype)
         if skip is not None:
-            out = out + upsample2x(skip, BLUR_KERNEL)
+            out = float32_or_wider(out) + upsample2x(skip, BLUR_KERNEL)
         return out
 
 

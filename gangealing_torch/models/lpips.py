@@ -5,7 +5,10 @@ Port of gangealing_tpu/models/lpips.py. The state_dict keys are the
 reference LPIPS names (``net.slice{i}.{idx}.weight``,
 ``lin{k}.model.1.weight``), which are the JAX package's parameter keys, so
 the richzhang calibration and SimCLR VGG weights load directly. Each loss
-returns per-sample (N, 1, 1, 1) distances.
+returns per-sample (N, 1, 1, 1) distances. With ``compute_dtype``
+bfloat16 the whole trunk runs in bfloat16, each of its 13 biases cast to
+it, and the features come back to float32 for the normalisation, the lins
+and the reduction.
 """
 
 import numpy as np
@@ -13,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gangealing_torch.models.layers import randn
+from gangealing_torch.models.layers import (
+    cast_to, float32_or_wider, randn)
 
 # torchvision VGG16 `features` conv layer indices and channel widths
 _VGG_SLICES = [
@@ -54,9 +58,20 @@ class VGG16(nn.Module):
     def forward(self, x):
         outs = []
         for sname, _, _ in _VGG_SLICES:
-            x = getattr(self, sname)(x)
+            for layer in getattr(self, sname):
+                x = _conv(layer, x) if isinstance(layer, nn.Conv2d) \
+                    else layer(x)
             outs.append(x)
         return outs
+
+
+def _conv(conv, x):
+    """``conv`` in the dtype of ``x``. Off float32 the bias is added after
+    the conv, cast to that dtype, where the JAX package adds it."""
+    if x.dtype == conv.weight.dtype:
+        return conv(x)
+    return (F.conv2d(x, conv.weight.to(x.dtype), padding=conv.padding)
+            + conv.bias.to(x.dtype)[:, None, None])
 
 
 class LinLayer(nn.Module):
@@ -90,16 +105,18 @@ def _normalize_tensor(feat, eps=1e-10):
     return feat / (torch.sqrt((feat ** 2).sum(dim=1, keepdim=True)) + eps)
 
 
-def lpips_distance(model: LPIPS, x, y):
+def lpips_distance(model: LPIPS, x, y, compute_dtype=None):
     """Per-sample perceptual distance, (N, 1, 1, 1), of images in [-1, 1]:
     calibrated by the lins if the model has them, else the raw sum over
-    channels (the vgg_ssl mode)."""
+    channels (the vgg_ssl mode). The trunk runs in ``compute_dtype``
+    (None: the images')."""
     shift = torch.tensor(SCALING_SHIFT, device=x.device).reshape(1, 3, 1, 1)
     scale = torch.tensor(SCALING_SCALE, device=x.device).reshape(1, 3, 1, 1)
-    fx = model.net((x - shift) / scale)
-    fy = model.net((y - shift) / scale)
+    fx = model.net(cast_to((x - shift) / scale, compute_dtype))
+    fy = model.net(cast_to((y - shift) / scale, compute_dtype))
     val = 0.0
     for i, (a, b) in enumerate(zip(fx, fy)):
+        a, b = float32_or_wider(a), float32_or_wider(b)
         d = (_normalize_tensor(a) - _normalize_tensor(b)) ** 2
         if model.use_lins:
             d = F.conv2d(d, getattr(model, f"lin{i}").model[1].weight)
@@ -109,14 +126,15 @@ def lpips_distance(model: LPIPS, x, y):
     return val
 
 
-def make_perceptual_loss(kind):
+def make_perceptual_loss(kind, compute_dtype=None):
     """loss(model, x, y) -> (N, 1, 1, 1), as get_perceptual_loss
     (lpips.py:13-23): 'vgg_ssl' is the raw distance over 18, 'lpips' the
-    calibrated one."""
+    calibrated one; the trunk runs in ``compute_dtype`` (None: the
+    images')."""
     if kind == "vgg_ssl":
-        return lambda m, x, y: lpips_distance(m, x, y) / 18.0
+        return lambda m, x, y: lpips_distance(m, x, y, compute_dtype) / 18.0
     if kind == "lpips":
-        return lpips_distance
+        return lambda m, x, y: lpips_distance(m, x, y, compute_dtype)
     raise NotImplementedError(kind)
 
 

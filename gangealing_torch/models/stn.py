@@ -19,7 +19,8 @@ from torch import nn
 
 from gangealing_torch.models.classifier import classifier_run_flip_target
 from gangealing_torch.models.layers import (
-    ConvLayer, EqualConv2d, EqualLinear, ResBlock)
+    ConvLayer, EqualConv2d, EqualLinear, ResBlock, cast_to, dtype_of,
+    float32_or_wider)
 from gangealing_torch.ops.flow import total_variation_loss
 from gangealing_torch.ops.grid_sample import (
     affine_grid, grid_sample_auto, identity_grid)
@@ -43,6 +44,8 @@ class STNConfig:
     flow_downsample: int = 8
     antialias: bool = True
     max_channels: int = 512  # cap (tests use small values; checkpoints 512)
+    compute_dtype: str = "float32"  # 'bfloat16' runs the encoder's convs
+    # in bfloat16; the warp heads' inputs and outputs stay float32
 
     @property
     def is_flow(self):
@@ -88,6 +91,7 @@ class ComposedSTNConfig:
     flow_downsample: int = 8
     antialias: bool = True
     max_channels: int = 512
+    compute_dtype: str = "float32"
 
     def stn_cfg(self, transform: str) -> STNConfig:
         return STNConfig(transform=transform, flow_size=self.flow_size,
@@ -96,7 +100,8 @@ class ComposedSTNConfig:
                          num_heads=self.num_heads,
                          flow_downsample=self.flow_downsample,
                          antialias=self.antialias,
-                         max_channels=self.max_channels)
+                         max_channels=self.max_channels,
+                         compute_dtype=self.compute_dtype)
 
     @property
     def stn_cfgs(self):
@@ -349,10 +354,14 @@ class SpatialTransformer(nn.Module):
                                             device=device)
 
     def features(self, img):
-        """Encoder: downsample to flow_size, conv stack, final head features."""
+        """Encoder: downsample to flow_size, conv stack, final head features.
+        The conv stack runs in ``cfg.compute_dtype``; its output comes back
+        to float32 (or a wider input's dtype) before the final linear and
+        the warp head."""
         if img.shape[-1] > self.cfg.flow_size:
             img = bilinear_downsample(img, img.shape[-1] // self.cfg.flow_size)
-        out = self.final_conv(self.convs(img))
+        img = cast_to(img, dtype_of(self.cfg.compute_dtype))
+        out = float32_or_wider(self.final_conv(self.convs(img)))
         if not self.cfg.is_flow:
             out = self.final_linear(out.reshape(out.shape[0], -1))
         return out

@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from gangealing_torch.models.layers import (
-    ConstantInput, EqualLinear, StyledConv, ToRGB, pixel_norm, randn)
+    ConstantInput, EqualLinear, StyledConv, ToRGB, cast_to, pixel_norm,
+    randn)
 
 
 @dataclass(frozen=True)
@@ -121,11 +122,16 @@ class Generator(nn.Module):
 
     def forward(self, styles, noise=None, rng=None, randomize_noise=True,
                 input_is_latent=False, inject_index=None, truncation=1.0,
-                truncation_latent=None, return_latents=False):
+                truncation_latent=None, return_latents=False,
+                compute_dtype=None):
         """``styles``: a list of (N, style_dim) z or w tensors, or of one
         (N, n_latent, style_dim) W+ tensor. ``noise``: a list of per-layer
         noise images; if None, drawn from ``rng`` (randomize_noise) or the
-        fixed buffers. Returns (image, W+ latent or None)."""
+        fixed buffers. ``compute_dtype``: the dtype of the synthesis from
+        the constant input on, None for the parameters' (the mapping and
+        the latents keep it); the image comes back at float32 or wider
+        from the last ToRGB's skip sum.
+        Returns (image, W+ latent or None)."""
         if not isinstance(styles, (list, tuple)):
             styles = [styles]
         if not input_is_latent:
@@ -145,7 +151,8 @@ class Generator(nn.Module):
                 noise = [getattr(self.noises, f"noise_{i}")
                          for i in range(self.cfg.num_layers)]
 
-        out = self.conv1(self.input(N), latent[:, 0], noise=noise[0])
+        out = self.conv1(cast_to(self.input(N), compute_dtype), latent[:, 0],
+                         noise=noise[0])
         skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for b, to_rgb in enumerate(self.to_rgbs):

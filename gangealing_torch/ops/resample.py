@@ -5,6 +5,8 @@ package wrote these in XLA, not Pallas, so here they are PyTorch and cuDNN
 ops: ``upfirdn2d`` is one depthwise ``F.conv2d``.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -53,13 +55,28 @@ def blur(x, kernel, pad, upsample_factor=1):
     return upfirdn2d(x, kernel, pad=pad)
 
 
+def rounded_like(value, x):
+    """The Python scalar ``value`` rounded to the dtype of ``x``. JAX
+    rounds a scalar to an array's dtype before an op between them; torch
+    takes it at float32 (or wider), which differs only below float32."""
+    if x.dtype in (torch.float32, torch.float64):
+        return value
+    return _rounded(value, x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def fused_leaky_relu(x, bias=None, negative_slope=0.2, scale=2 ** 0.5):
     """bias-add (broadcast at channel dim 1) + leaky ReLU + scale."""
     if bias is not None:
         shape = [1] * x.ndim
         shape[1] = bias.shape[0]
         x = x + bias.reshape(shape).to(x.dtype)
-    return torch.where(x >= 0, x, x * negative_slope) * scale
+    return (torch.where(x >= 0, x, x * rounded_like(negative_slope, x))
+            * rounded_like(scale, x))
 
 
 def _tent_kernel(stride, device=None):

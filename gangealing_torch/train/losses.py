@@ -5,7 +5,9 @@ Port of gangealing_tpu/train/losses.py (reference models/losses/loss.py:
 21-92): the pair sampling, the unimodal loss and the clustered one. Fresh
 noise for each generator pass is drawn from ``rng`` (loss.py:66-68),
 unless ``noise`` gives both passes' noise (the second pass runs at N*K
-images when the latent learner has K heads).
+images when the latent learner has K heads). ``compute_dtype`` (a
+torch dtype, or None for the parameters') is the dtype of both generator
+passes' synthesis; their images come back float32.
 """
 
 import torch
@@ -20,7 +22,8 @@ def resize_fake2stn(x, gen_size, flow_size):
 
 
 def sample_gan_supervised_pairs(generator, ll, z, psi, flow_size,
-                                freeze_ll=False, noise=None, rng=None):
+                                freeze_ll=False, noise=None, rng=None,
+                                compute_dtype=None):
     """(unaligned, aligned target) from the frozen generator
     (loss.py:21-29). The target is resized to ``flow_size``; gradients
     reach ``ll`` through the second generator pass unless ``freeze_ll``.
@@ -28,26 +31,27 @@ def sample_gan_supervised_pairs(generator, ll, z, psi, flow_size,
     n_unaligned, n_aligned = noise if noise is not None else (None, None)
     with torch.no_grad():
         unaligned, w = generator([z], noise=n_unaligned, rng=rng,
-                                 return_latents=True)
+                                 return_latents=True, compute_dtype=compute_dtype)
     with torch.set_grad_enabled(torch.is_grad_enabled() and not freeze_ll):
         w_aligned = ll(w[:, 0, :], psi)
         aligned, _ = generator([w_aligned], input_is_latent=True,
-                               noise=n_aligned, rng=rng)
+                               noise=n_aligned, rng=rng, compute_dtype=compute_dtype)
     return unaligned, resize_fake2stn(aligned, generator.cfg.size, flow_size)
 
 
-def _pairs(generator, stn, ll, z, psi, freeze_ll, noise, rng, pair_sampler):
+def _pairs(generator, stn, ll, z, psi, freeze_ll, noise, rng, pair_sampler,
+           compute_dtype):
     if pair_sampler is None:
         return sample_gan_supervised_pairs(
             generator, ll, z, psi, stn.cfg.flow_size, freeze_ll=freeze_ll,
-            noise=noise, rng=rng)
+            noise=noise, rng=rng, compute_dtype=compute_dtype)
     return pair_sampler(ll, z, psi)
 
 
 def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
                     freeze_ll=False, sample_from_full_res=False,
                     padding_mode="border", noise=None, rng=None,
-                    pair_sampler=None):
+                    pair_sampler=None, compute_dtype=None):
     """Unimodal reconstruction loss (loss.py:64-75). Returns
     (perceptual loss, delta_flow).
 
@@ -55,7 +59,7 @@ def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
     replacement for the GAN pair source, mapping (ll, z, psi) to
     (unaligned, target at flow_size)."""
     unaligned, target = _pairs(generator, stn, ll, z, psi, freeze_ll, noise,
-                               rng, pair_sampler)
+                               rng, pair_sampler, compute_dtype)
     flow_size = stn.cfg.flow_size
     gen_size = generator.cfg.size if generator is not None else flow_size
     resized = resize_fake2stn(unaligned, gen_size, flow_size)
@@ -70,7 +74,8 @@ def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
                                    num_heads, flips, freeze_ll=False,
                                    sample_from_full_res=True,
                                    padding_mode="border", noise=None,
-                                   rng=None, pair_sampler=None):
+                                   rng=None, pair_sampler=None,
+                                   compute_dtype=None):
     """Congeal the fakes with every head, and with ``flips`` their mirrors
     too, and take the head of least perceptual distance to its target
     (loss.py:32-61). Returns (min distances (N,), their indices (N,) into
@@ -82,7 +87,7 @@ def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
     batch axis and the targets repeat, so the distances come out as
     (2, N, K) and column f*K + k of a row is head k on flip f."""
     unaligned, target = _pairs(generator, stn, ll, z, psi, freeze_ll, noise,
-                               rng, pair_sampler)
+                               rng, pair_sampler, compute_dtype)
     batch = unaligned.shape[0]
     if flips:
         unaligned = torch.cat([unaligned, unaligned.flip(3)], 0)
@@ -108,7 +113,8 @@ def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
 def gangealing_cluster_loss(generator, stn, ll, perceptual_fn, z, psi,
                             num_heads, flips, freeze_ll=False,
                             sample_from_full_res=True, padding_mode="border",
-                            noise=None, rng=None, pair_sampler=None):
+                            noise=None, rng=None, pair_sampler=None,
+                            compute_dtype=None):
     """The clustered loss (loss.py:78-92): the mean of each fake's least
     distance, and the residual flow of the head (and flip) it went to,
     which alone the flow regularisers see. Returns (loss, assigned
@@ -117,7 +123,7 @@ def gangealing_cluster_loss(generator, stn, ll, perceptual_fn, z, psi,
         generator, stn, ll, perceptual_fn, z, psi, num_heads, flips,
         freeze_ll=freeze_ll, sample_from_full_res=sample_from_full_res,
         padding_mode=padding_mode, noise=noise, rng=rng,
-        pair_sampler=pair_sampler)
+        pair_sampler=pair_sampler, compute_dtype=compute_dtype)
     batch = min_idx.shape[0]
     hw2 = delta_flow.shape[1:]
     if flips:

@@ -17,6 +17,7 @@ import torch
 
 from gangealing_torch.models.latent_learner import (
     LatentLearner, LatentLearnerConfig)
+from gangealing_torch.models.layers import dtype_of
 from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
 from gangealing_torch.models.stylegan2 import GeneratorConfig
 from gangealing_torch.ops.flow import flow_identity_loss, total_variation_loss
@@ -88,7 +89,9 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     detached device scalars (reading them synchronises) and, for a
     clustering model (``num_heads > 1`` or ``flips``, loss.py:78-92),
     "assignments": each fake's head (and flip) index, whose residual flow
-    alone the TV and flow-identity terms see."""
+    alone the TV and flow-identity terms see. Both generator passes run in
+    ``cfg.compute_dtype``; the perceptual trunk runs in the dtype
+    ``perceptual_fn`` was made with."""
     cfg = state.cfg
     set_lr(state.t_optim, lr_t)
     set_lr(state.ll_optim, lr_ll)
@@ -96,7 +99,8 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     state.ll_optim.zero_grad(set_to_none=True)
     kw = dict(freeze_ll=cfg.freeze_ll,
               sample_from_full_res=cfg.sample_from_full_res,
-              padding_mode=cfg.padding_mode, noise=noise, rng=rng)
+              padding_mode=cfg.padding_mode, noise=noise, rng=rng,
+              compute_dtype=dtype_of(cfg.compute_dtype))
     out = {}
     if cfg.t.num_heads > 1 or cfg.flips:
         ploss, delta_flow, out["assignments"] = gangealing_cluster_loss(

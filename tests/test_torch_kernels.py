@@ -112,8 +112,9 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_nothing_of_jax():
     """No line of the port's modules or of the card scripts (chip_smoke.py,
-    the variants scripts, chip_cars_batch.py, chip_serve_rates.py) imports
-    jax or the JAX package, at top level or inside a function."""
+    the variants scripts, chip_cars_batch.py, chip_serve_rates.py,
+    chip_bf16_noise.py) imports jax or the JAX package, at top level or
+    inside a function."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gangealing_tpu)"
                          r"\b")
     files = sorted((REPO / "gangealing_torch").rglob("*.py"))

@@ -254,7 +254,6 @@ def test_state_dict_names_match_jax_at_flagship(num_heads):
 def test_stn_config_from_args(args):
     ours = dataclasses.asdict(tcommon.stn_config_from_args(args))
     ref = dataclasses.asdict(jio.stn_config_from_args(args))
-    ref.pop("compute_dtype")
     assert ours == ref
 
 

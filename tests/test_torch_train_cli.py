@@ -2,8 +2,9 @@
 few iterations from a generator checkpoint in the reference schema, with
 the PCA cold start (``--debug``: 1000 latents), finite scalars, a
 checkpoint at ``--ckpt_every``, and ``--auto_resume`` picking it up; the
-training visuals and the profiler window write their files; the options
-of later slices are refused with the slice's name."""
+training visuals and the profiler window write their files; a bfloat16
+run trains and checkpoints; the options of later slices are refused with
+the slice's name."""
 
 import dataclasses
 import json
@@ -114,7 +115,23 @@ def test_cli_refuses_later_slices(tmp_path, capsys, small_widths, extra,
     visuals and the profiler window: a run of 2 iterations draws its
     grids at 0 and 1 (the zero of the learning rate) and at 2
     (``--vis_every 2``), the congealed reals from ``--real_data_path``;
-    ``--profile_dir`` writes a Chrome trace of its window (1, 2]."""
+    ``--profile_dir`` writes a Chrome trace of its window (1, 2]. So is
+    ``--compute_dtype bfloat16``: 2 iterations log finite scalars and
+    write a checkpoint that loads, with float32 parameters."""
+    if slice_name == "precision":
+        _generator_checkpoint(tmp_path)
+        state, _, _, _ = tcli.main(_argv(tmp_path, 2, *extra))
+        assert state.cfg.compute_dtype == "bfloat16"
+        scalars = _scalars(tmp_path)
+        assert {s["step"] for s in scalars} == {1, 2}
+        assert all(math.isfinite(s["value"]) for s in scalars)
+        ckpt = tckpt.load_checkpoint(
+            tmp_path / "results" / "smoke" / "checkpoints" / "0000002.pt")
+        assert ckpt["args"].compute_dtype == "bfloat16"
+        t = tcli.ComposedSTN(state.cfg.t)
+        t.load_state_dict(tckpt.module_state(ckpt["t"]), strict=True)
+        assert all(v.dtype == torch.float32 for v in ckpt["t"].values())
+        return
     if slice_name in ("visuals", "profiling"):
         _generator_checkpoint(tmp_path)
         if slice_name == "visuals":

@@ -106,7 +106,9 @@ class Setup:
                  for _ in range(2)]
         return z, noise
 
-    def jax_sampler(self, noise):
+    def jax_sampler(self, noise, compute_dtype=jnp.float32):
+        """JAX's pair source on the given noise, both generator passes in
+        ``compute_dtype``."""
         g_params, jcfg = self.g_params, self.jcfg
         noise_u, noise_a = [[jnp.asarray(n) for n in ns] for ns in noise]
 
@@ -116,12 +118,14 @@ class Setup:
                 ll_p[k] = jax.lax.stop_gradient(ll_p[k])
             unaligned, w = jsg.generator_apply(g_params, jcfg.g, [z],
                                                noise=noise_u,
-                                               return_latents=True)
+                                               return_latents=True,
+                                               compute_dtype=compute_dtype)
             w_aligned = jll.latent_learner_interpolate(ll_p, jcfg.ll,
                                                        w[:, 0, :], psi)
             aligned, _ = jsg.generator_apply(g_params, jcfg.g, [w_aligned],
                                              input_is_latent=True,
-                                             noise=noise_a)
+                                             noise=noise_a,
+                                             compute_dtype=compute_dtype)
             return unaligned, jlosses.resize_fake2stn(aligned, jcfg.g.size,
                                                       jcfg.t.flow_size)
         return sampler
