@@ -20,13 +20,29 @@ beside its gate in BF16_GATES or BF16_CLUSTER_GATES), and the CPU path's
 bfloat16 against its float32 (how far bfloat16 rounding itself moves the
 step). Needs one CUDA card; the last line is a JSON object with each
 state's largest readings and how many seeds passed each gate.
+
+    python3 chip_bf16_noise.py --cpu_forward
+
+takes no card: on the CPU alone, the well-conditioned quantities of the
+batch-2 bfloat16 cats step (chip_smoke.bf16_forward: both generator
+passes' images and the per-image perceptual distances) at the smoke's
+width, from the identity init and from it plus seeded noise of 0.05, for
+z seeds 7 and 8: the bfloat16 evaluation with oneDNN against the float32
+one (how far bfloat16 rounding moves them), and, for seed 7 at the
+identity, against the bfloat16 evaluation with oneDNN off (native
+convolutions, a second valid one). The readings behind
+chip_smoke.BF16_FORWARD_GATES; the last line is a JSON object of the
+largest of each.
 """
 
+import copy
 import dataclasses
 import json
 import os
+import shutil
 import sys
 import tempfile
+import time
 
 import torch
 import torch.nn.functional as F
@@ -125,7 +141,59 @@ def table(what, cfg, t, ll, gen, perc, dev, card, clustered=False):
     return found
 
 
+def cpu_forward():
+    """The CPU readings of chip_smoke.bf16_forward's quantities."""
+    torch.manual_seed(0)
+    cpu = torch.device("cpu")
+    d = tempfile.mkdtemp()
+    args = cs.train_cli.training_argparse().parse_args(
+        cs.cats_argv(d, os.path.join(d, "g.pt"), 1, "--device", "cpu"))
+    cfg = cs.train_cli.build_configs(args)
+    gen = cs.Generator(cfg.g, generator=torch.Generator().manual_seed(3))
+    gen.eval().requires_grad_(False)
+    perc, _ = cs.train_cli.load_perceptual(
+        args, cpu, torch.Generator().manual_seed(2))
+    ll = cs.LatentLearner(cfg.ll, generator=torch.Generator().manual_seed(1))
+    cs.train_loop.cold_start_ll(ll, gen, torch.Generator().manual_seed(3),
+                                debug=True)
+    t_id = cs.ComposedSTN(cfg.t, generator=torch.Generator().manual_seed(6))
+    t_noisy = copy.deepcopy(t_id)
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in t_noisy.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    found = {"bfloat16 vs float32": {}, "oneDNN vs native": {}}
+
+    def keep(what, errs):
+        for k, v in errs.items():
+            found[what][k] = max(found[what].get(k, 0.0), v)
+
+    for name, t in (("identity init", t_id),
+                    ("identity init + 0.05", t_noisy)):
+        for seed in (7, 8):
+            z, noise = batch2(cfg, seed, False)
+            args = (t, ll, gen, perc, cpu, z, noise)
+            t0 = time.perf_counter()
+            got = cs.bf16_forward(bf16, *args)
+            errs = cs.forward_errs(got, cs.bf16_forward(cfg, *args))
+            keep("bfloat16 vs float32", errs)
+            print(f"CPU, {name}, z seed {seed}: bfloat16 against float32 "
+                  f"{errs} ({time.perf_counter() - t0:.1f} s)", flush=True)
+            if seed == 7 and t is t_id:
+                with torch.backends.mkldnn.flags(enabled=False):
+                    native = cs.bf16_forward(bf16, *args)
+                errs = cs.forward_errs(native, got)
+                keep("oneDNN vs native", errs)
+                print(f"CPU, {name}, z seed {seed}: bfloat16 with oneDNN "
+                      f"against native convolutions {errs}", flush=True)
+    shutil.rmtree(d)
+    print(json.dumps(found))
+
+
 def main():
+    if "--cpu_forward" in sys.argv[1:]:
+        return cpu_forward()
     dev, card = cs.setup()
     layers(dev, card)
     d = tempfile.mkdtemp()

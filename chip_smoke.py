@@ -8,7 +8,9 @@ the LSUN-cars clustering configuration with its cluster visuals and its
 cluster classifier and run the AR apps with that classifier; then render
 the correspondence videos (vis_correspondence) and turn a video into an
 LMDB (process_video); then train both configurations and serve the
-flagship with --compute_dtype bfloat16.
+flagship with --compute_dtype bfloat16; then run cli.train through
+torchrun at world 1 over NCCL and the steps and apps over two gloo ranks
+on the one card.
 
     python3 chip_smoke.py
 
@@ -187,7 +189,23 @@ Phases:
      bfloat16 at batch 128: its two K1 launches held, its grids and
      flows against the float32 forward's (BF16_CONGEAL_TOL), imgs/s and
      its peak;
- 10. rates, and each kernel's device time (torch.profiler; K6's by CUDA
+ 10. the distributed phase (chip_smoke.py::distributed, gangealing_torch/
+     parallel): python -m torch.distributed.run --standalone
+     --nproc_per_node 1 -m gangealing_torch.cli.train (NCCL at world 1)
+     on the cats flags with --debug and a profiler window against the same
+     command without torchrun (loss terms DIST_LOSS_RTOL, parameters
+     DIST_PARAM_L2), both imgs/s and the all-reduce's device time a step;
+     then two ranks on the one card over gloo (spawned processes): a cats
+     step at DIST_CATS_BATCH a rank, a cars step at DIST_CARS_BATCH a rank
+     and a classifier step at DIST_CLS_BATCH a rank, each all-reduced
+     gradient held to the bit against the mean of the two half-batch
+     gradients computed in this process (G's noise weights non-zero,
+     torch's deterministic algorithms on both sides; equal assignments
+     and labels), their rates and each rank's peak; flow_scores,
+     congeal_dataset and the mixed-reality video (an odd number of
+     frames: an uneven stripe and a padded tail) over the two ranks
+     against one rank;
+ 11. rates, and each kernel's device time (torch.profiler; K6's by CUDA
      events around back-to-back calls, as a profile of it now and then
      misses launches) beside its plain version's, its bound on the card (the bytes of an image that
      these grids must read counted as the distinct texels their taps reach;
@@ -201,8 +219,9 @@ Phases:
      check (three kernels a call each), and the
      N=8 ones a toy-size line apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train, the AR apps, the
-     eval apps, the cluster phase, the visualize phase and the precision
-     phase) and
+     eval apps, the cluster phase, the visualize phase, the precision
+     phase and the distributed phase's runs in this process and in its
+     ranks) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -215,14 +234,17 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -252,7 +274,8 @@ from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
 from gangealing_torch.data.prepare import SPAIR_PERMUTATIONS, center_crop
 from gangealing_torch.models.latent_learner import LatentLearner
 from gangealing_torch.models.layers import dtype_of
-from gangealing_torch.models.lpips import make_perceptual_loss
+from gangealing_torch.models.classifier import Classifier
+from gangealing_torch.models.lpips import LPIPS, make_perceptual_loss
 from gangealing_torch.models import stn as stn_ops
 from gangealing_torch.models.stn import (
     ComposedSTN, ComposedSTNConfig, composed_propagate_object,
@@ -274,7 +297,8 @@ from gangealing_torch.train import loop as train_loop
 from gangealing_torch.train.classifier_train import ClassifierTrainer
 from gangealing_torch.train.clustering import kmeans_plusplus
 from gangealing_torch.train.losses import (
-    assign_fake_images_to_clusters, gangealing_loss)
+    assign_fake_images_to_clusters, gangealing_loss, resize_fake2stn,
+    sample_gan_supervised_pairs)
 from gangealing_torch.train.state import TrainState, train_step
 from gangealing_torch.train import visuals as visuals_mod
 from gangealing_torch.train.visuals import (
@@ -1298,13 +1322,36 @@ def scaled_err(ours, ref):
             float((ours - ref).abs().max()) / max(1.0, float(ref.abs().max())))
 
 
-def hold(name, pairs, errs):
-    """Each (ours, ref) within KERNEL_TOL scaled by max(1, max|ref|)."""
-    for ours, ref in pairs:
+def hold(name, pairs, errs, where=None):
+    """Each (ours, ref) within KERNEL_TOL scaled by max(1, max|ref|). On a
+    failure, first print the worst element: its pair, index and both
+    values, and ``where(pair, index)`` when given."""
+    for i, (ours, ref) in enumerate(pairs):
         err, scaled = scaled_err(ours, ref)
+        if scaled > KERNEL_TOL:
+            diff = (ours - ref).abs()
+            at = tuple(int(v) for v in np.unravel_index(
+                int(diff.argmax()), tuple(diff.shape)))
+            print(f"{name}: output {i} of shape {tuple(ours.shape)} worst "
+                  f"at {at}: kernel {float(ours[at]):.9e}, plain "
+                  f"{float(ref[at]):.9e}"
+                  + (f"; {where(i, at)}" if where else ""))
         check(scaled <= KERNEL_TOL, f"{name} disagrees with its plain "
               f"version: {err:.3e} ({scaled:.3e} scaled)")
         errs[name] = max(errs.get(name, 0.0), err)
+
+
+def k3_where(calls):
+    """For ``hold``: the recorded grid and level of the point of a K3
+    output's element (each launch gives d/dgrid, then d/dlevels)."""
+    def where(i, at):
+        pyramid, grid, levels, _, pm = calls[i // 2][0]
+        n, h, w = at[:3]
+        gx, gy = (float(v) for v in grid[n, h, w])
+        return (f"grid ({gx:.9e}, {gy:.9e}), level "
+                f"{float(levels[n, h, w]):.9e}, {pm} padding, a pyramid "
+                f"of {pyramid.shape.size} px")
+    return where
 
 
 # Each takes a backward kernel's recorded arguments and returns the plain
@@ -1843,7 +1890,8 @@ def train(dev, card, reals):
         with torch.no_grad():
             hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
                  step_errs)
-        hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), step_errs)
+        hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), step_errs,
+             k3_where(k3))
         for k, v in step_errs.items():
             errs[k] = max(errs.get(k, 0.0), v)
         print(f"K1 and K3 launches of a train step from the {what}, inputs "
@@ -1863,9 +1911,9 @@ def train(dev, card, reals):
     below = torch.nextafter(torch.round(lv) + 1, torch.zeros_like(lv))
     args = (pyramid, grid, below.contiguous(), dout, pm)
     step_errs = {}
-    hold("mipmap_sample_dcoords", backward_pairs(
-        [(args, mipmap_ops.mipmap_sample_dcoords(*args))], k3_graph),
-        step_errs)
+    calls = [(args, mipmap_ops.mipmap_sample_dcoords(*args))]
+    hold("mipmap_sample_dcoords", backward_pairs(calls, k3_graph), step_errs,
+         k3_where(calls))
     errs["mipmap_sample_dcoords"] = max(errs["mipmap_sample_dcoords"],
                                         step_errs["mipmap_sample_dcoords"])
     print(f"K3 on those inputs with every level a float step below an "
@@ -3033,7 +3081,8 @@ def cars_kernels(state, step, card):
     with torch.no_grad():
         hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
              errs)
-    hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), errs)
+    hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), errs,
+         k3_where(k3))
     rows = []
     for head, (args, out), wargs in zip(("similarity", "flow"), k1, warps):
         pyramid, grid, levels, pm = args
@@ -3467,9 +3516,11 @@ def cluster(dev, card, reals):
 # the CPU (unimodal, clustered); BF16_TIE, the relative gap of two
 # distances under which two bfloat16 paths may assign a fake apart, is
 # that test's. The cats step is held where the float32 one is (train: the
-# state the float32 cli.train run wrote, the identity init). Its tensor
-# gate fails on the card (ROADMAP Queue 3, PERF.md): its worst tensor is
-# printed beside the gate and not held; its loss terms and L2 are held.
+# state the float32 cli.train run wrote, the identity init): its loss
+# terms and L2 and, in place of its ill-conditioned per-tensor gradient
+# gate (printed beside 0.1, not held: two valid bfloat16 evaluations part
+# by about as much as bfloat16 moves the step from float32; PERF.md), its
+# images and distances (BF16_FORWARD_GATES).
 # BF16_VS_F32: the cats step in bfloat16 on the card against its own
 # float32 step (loss terms, all gradients in L2), as the CPU test holds the
 # port's. BF16_CONGEAL_TOL: the bfloat16 congeal forward's grids and flows
@@ -3481,6 +3532,20 @@ BF16_GATES = (1e-2, 0.1, 3e-2)
 BF16_CLUSTER_GATES = (1e-2, 0.25, 8e-2)
 BF16_VS_F32 = (5e-2, 0.25)
 BF16_CONGEAL_TOL = 0.1
+# BF16_FORWARD_GATES: the well-conditioned quantities of the same batch-2
+# bfloat16 cats step (bf16_forward), card against the CPU path: both
+# generator passes' images (largest absolute difference) and the
+# per-image perceptual distances (largest relative difference). Set from
+# CPU readings alone (python3 chip_bf16_noise.py --cpu_forward on the
+# H100 machine's CPU, the card hidden; at the identity init and at it plus
+# 0.05 noise, z 7 and 8), before any card reading of these quantities:
+# the bfloat16 step against its float32 one moved the fakes 0.0905, the
+# targets 0.0914 and the distances 1.402e-02 at most; oneDNN against
+# native convolutions, two valid bfloat16 evaluations, parted by 0.0880,
+# 0.0645 and 1.271e-03. Each valid bfloat16 evaluation lies within its
+# distance from float32, so two lie within the sum: each gate is twice
+# the largest bfloat16-to-float32 reading, rounded up.
+BF16_FORWARD_GATES = {"unaligned": 0.2, "target": 0.2, "distances": 3e-2}
 
 
 def bf16_check(card, cpu, gates, what, hold_tensors=True):
@@ -3508,8 +3573,9 @@ def bf16_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what,
                           f32_card):
     """The batch-2 cats step of ``card_vs_cpu_step`` in bfloat16, on the
     card against the CPU path within BF16_GATES (the worst tensor printed,
-    not held), and against the card's float32 step ``f32_card`` (same
-    state, z and noise) within BF16_VS_F32."""
+    not held) and its images and distances within BF16_FORWARD_GATES, and
+    against the card's float32 step ``f32_card`` (same state, z and noise)
+    within BF16_VS_F32."""
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     z, noise = step_batch2(cfg)
     card, cpu = [step_grads(bf16, t, ll, generator, perceptual, d, z, noise)
@@ -3517,6 +3583,16 @@ def bf16_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what,
     bf16_check(card, cpu, BF16_GATES,
                f"one bfloat16 train step from the {what} at batch 2",
                hold_tensors=False)
+    got, ref = [bf16_forward(bf16, t, ll, generator, perceptual, d, z, noise)
+                for d in (dev, torch.device("cpu"))]
+    errs = forward_errs(got, ref)
+    print(f"card vs CPU path, that bfloat16 step's images and distances "
+          f"from the {what}: "
+          + ", ".join(f"{k} {v:.3e} (gate {BF16_FORWARD_GATES[k]})"
+                      for k, v in errs.items()))
+    check(all(v <= BF16_FORWARD_GATES[k] for k, v in errs.items()),
+          f"{what}: the bfloat16 step's images or distances differ from "
+          "the CPU path")
     rel, worst, l2 = compare_steps(card, f32_card)
     print(f"card, that bfloat16 step against its float32 one: loss terms "
           f"relative {rel:.3e}; worst gradient {worst[1]} at {worst[0]:.3e} "
@@ -3524,6 +3600,38 @@ def bf16_card_vs_cpu_step(cfg, t, ll, generator, perceptual, dev, what,
           f"norm (gates {BF16_VS_F32[0]}, {BF16_VS_F32[1]} in L2)")
     check(rel <= BF16_VS_F32[0] and l2 <= BF16_VS_F32[1],
           f"{what}: the bfloat16 step strays from the float32 one")
+
+
+def bf16_forward(cfg, t, ll, generator, perceptual, d, z, noise):
+    """The well-conditioned quantities of a batch-2 cats step in
+    ``cfg.compute_dtype`` on device ``d``, from copies of the modules: the
+    images of both generator passes (the fakes, and their aligned targets
+    at flow_size) and each fake's perceptual distance from its target after
+    the STN, as the step's loss computes them (psi 0.5). Returns float32
+    CPU tensors."""
+    dt = dtype_of(cfg.compute_dtype)
+    loss = make_perceptual_loss(cfg.loss_fn, dt)
+    gen, vgg, stn, lat = (copy.deepcopy(m).to(d)
+                          for m in (generator, perceptual, t, ll))
+    with torch.no_grad():
+        unaligned, target = sample_gan_supervised_pairs(
+            gen, lat, z.to(d), 0.5, cfg.t.flow_size,
+            noise=[[n.to(d) for n in ns] for ns in noise], compute_dtype=dt)
+        pred = stn(resize_fake2stn(unaligned, cfg.g.size, cfg.t.flow_size),
+                   padding_mode=cfg.padding_mode)[0]
+        dist = loss(vgg, pred, target).flatten()
+    return {"unaligned": unaligned.float().cpu(),
+            "target": target.float().cpu(), "distances": dist.float().cpu()}
+
+
+def forward_errs(got, ref):
+    """The images' largest absolute difference, and the distances' largest
+    relative one."""
+    errs = {k: float((got[k] - ref[k]).abs().max())
+            for k in ("unaligned", "target")}
+    errs["distances"] = float(((got["distances"] - ref["distances"]).abs()
+                               / ref["distances"].abs()).max())
+    return errs
 
 
 def operand_dtypes(calls):
@@ -3580,7 +3688,8 @@ def bf16_kernels(step, what):
     with torch.no_grad():
         hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
              errs)
-    hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), errs)
+    hold("mipmap_sample_dcoords", backward_pairs(k3, k3_graph), errs,
+         k3_where(k3))
     print(f"K1 and K3 launches of a bfloat16 {what} step, float32 operands, "
           f"held against the plain versions: max abs err K1 "
           f"{errs['mipmap_sample']:.3e}, K3 "
@@ -4110,6 +4219,613 @@ def visualize(dev, card, reals):
     return launches, errs, (n_frames / seconds, idle, n / video_s)
 
 
+# The distributed phase (gangealing_torch/parallel). The card is one H100,
+# and NCCL refuses two ranks on one device, so the phase runs:
+#   * NCCL at world 1: python -m torch.distributed.run --standalone
+#     --nproc_per_node 1 running gangealing_torch.cli.train as its
+#     __main__, the cats recipe at the flagship width and TRAIN_BATCH for
+#     DIST_ITERS iterations with --debug and a profiler window over the
+#     last, against the same command in this process without torchrun:
+#     its logged loss terms within DIST_LOSS_RTOL relative and its last
+#     checkpoint's STN and ll parameters within DIST_PARAM_L2 in relative
+#     L2 (both read 0 on the CPU, tests/test_torch_parallel.py), its
+#     imgs/s beside the plain run's, and the all-reduce's device time a
+#     step from the trace. Both runs take cuDNN's deterministic
+#     algorithms: with its default ones two runs of the same command in
+#     one process part by 1e-3 to 2e-3 in the TV term after a few steps,
+#     ten times the gate, and with the deterministic ones to the bit (both
+#     read on the card before these gates held; PERF.md §6). A third
+#     run prints what cuDNN's default algorithms move;
+#   * two ranks on the one card over gloo, which stages the card's tensors
+#     through the host (gangealing_torch/parallel/launch.spawn_ranks,
+#     each rank timing out after DIST_TIMEOUT s): one cats step at
+#     DIST_CATS_BATCH a rank, one cars step (the clustered loss) at
+#     DIST_CARS_BATCH a rank, the reference's per-GPU 5, and one classifier
+#     step at DIST_CLS_BATCH a rank, each rank on its rows of the global
+#     z and noise (G's noise weights at DIST_NOISE_WEIGHT, so that each
+#     rank's noise rows reach its images); each all-reduced gradient held
+#     to the bit against the mean of the two half-batch gradients computed
+#     in this process from the same state and inputs, both sides on
+#     torch's deterministic algorithms (cuDNN's among them), as on the
+#     CPU; the cars
+#     assignments and classifier labels equal; then flow_scores,
+#     congeal_dataset and the mixed-reality video over the two ranks
+#     against one rank in this process. Both measure overhead, not a
+#     speed-up: two ranks on one card share it.
+DIST_ITERS = 6
+DIST_PROFILE = (5, 6)  # the traced iteration; the rates are of those before
+DIST_CATS_BATCH = 20
+DIST_CARS_BATCH = 5
+DIST_CLS_BATCH = 20
+DIST_TIMED = 3
+# The images' batches hold DIST_APP_BATCH items over one rank and over
+# two. The video's DIST_FRAMES is odd: rank 1's stripe is one frame
+# short, its last batch holds 11 frames and gather_process_stripes pads
+# its tail. A frame's congealed and propagated pixels depend on the size
+# of the batch it went in (cuDNN and cuBLAS may take other algorithms at
+# another batch size; the propagated frames go through a nearest-point
+# search, where a last-bit change can move a point by a pixel), so the
+# two ranks' video is held against one rank that runs the same batches:
+# each rank's stripe through the app in this process, interleaved. Printed
+# beside it: the two ranks against one rank over all the frames at
+# DIST_APP_BATCH, and one rank at DIST_WITNESS_BATCHES on the first
+# DIST_WITNESS_FRAMES frames, the batches of a run that read 1.764e-02
+# (PERF.md §6).
+DIST_IMAGES = 48
+DIST_FRAMES = 47
+DIST_APP_BATCH = 12
+DIST_WITNESS_FRAMES = 20
+DIST_WITNESS_BATCHES = (10, 12)
+# G's noise weights in the steps' cases (0 at init, where no noise row
+# would reach an image), as tests/test_torch_parallel.py sets them
+DIST_NOISE_WEIGHT = 0.3
+DIST_TIMEOUT = 400
+DIST_LOSS_RTOL = 1e-4
+DIST_PARAM_L2 = 1e-3
+
+
+def dist_argv(results, gpath, name, *extra):
+    return cats_argv(results, gpath, DIST_ITERS, "--exp-name", name,
+                     "--debug", "--vis_every", "0", "--ckpt_every",
+                     str(DIST_ITERS), *extra)
+
+
+def dist_scalars(run_dir):
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        return {(s["step"], s["name"]): s["value"] for s in map(json.loads, f)
+                if s["name"].startswith("Loss/")}
+
+
+def steady_rate(text, batch):
+    """imgs/s over iterations 2 to DIST_PROFILE[0], before the profiler
+    window, from the cumulative rates cli.train printed after each
+    iteration (i * batch over the seconds since its first step began)."""
+    seen = {int(i): float(r) for i, r in re.findall(
+        r"\[(\d+)/\d+\] p=\S+ tv=\S+ psi=\S+ ([\d.]+) imgs/s", text)}
+    last = DIST_PROFILE[0]
+    check(1 in seen and last in seen, "cli.train printed no rates")
+    secs = {i: i * batch / r for i, r in seen.items()}
+    return (last - 1) * batch / (secs[last] - secs[1])
+
+
+def annotation_ms(trace_dir, name):
+    """The device time (ms) under the record_function ``name`` in the one
+    Chrome trace in ``trace_dir``, and its host time, each summed, and the
+    number of its host spans."""
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"the profiler window wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    dur = {cat: sum(e.get("dur", 0) for e in events
+                    if e.get("name") == name and e.get("cat") == cat) / 1e3
+           for cat in ("gpu_user_annotation", "user_annotation")}
+    n = sum(e.get("name") == name and e.get("cat") == "user_annotation"
+            for e in events)
+    return dur["gpu_user_annotation"], dur["user_annotation"], n
+
+
+def dist_window(d, name):
+    return ["--profile_dir", os.path.join(d, f"trace_{name}"),
+            "--profile_start", str(DIST_PROFILE[0]), "--profile_stop",
+            str(DIST_PROFILE[1])]
+
+
+# cli.train as the module's own __main__, after choosing cuDNN's
+# deterministic algorithms
+DETERMINISTIC_TRAIN = (
+    "import runpy, torch; torch.backends.cudnn.deterministic = True; "
+    "runpy.run_module('gangealing_torch.cli.train', run_name='__main__', "
+    "alter_sys=True)")
+
+
+def torchrun_train(d, gpath, name):
+    """cli.train through torchrun at world 1 in a process of its own, with
+    cuDNN's deterministic algorithms, at this process's torch threads
+    (torchrun would set one). Returns its imgs/s and the seconds with its
+    start."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "--no-python", sys.executable, "-c",
+           DETERMINISTIC_TRAIN,
+           *dist_argv(os.path.join(d, "results"), gpath, name,
+                      *dist_window(d, name))]
+    env = {**os.environ, "OMP_NUM_THREADS": str(torch.get_num_threads()),
+           "PYTHONPATH": os.pathsep.join(
+               [os.path.dirname(os.path.abspath(__file__)),
+                os.environ.get("PYTHONPATH", "")])}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=DIST_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:])
+    check(proc.returncode == 0, f"torchrun cli.train exited with "
+          f"{proc.returncode}")
+    return steady_rate(proc.stdout, TRAIN_BATCH), time.perf_counter() - t0
+
+
+def plain_train(d, gpath, name, deterministic=True):
+    """The same command in this process, as torchrun's process runs it
+    (torch's defaults but cuDNN's deterministic algorithms: cuDNN's TF32
+    on); with ``deterministic`` False, cuDNN's default algorithms. Returns
+    its imgs/s and launches."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = deterministic
+    zero_launches()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            train_cli.main(dist_argv(os.path.join(d, "results"), gpath,
+                                     name, *dist_window(d, name)))
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    return steady_rate(out.getvalue(), TRAIN_BATCH), dict(LAUNCHES)
+
+
+def compare_runs(d, a, b):
+    """Run ``b`` against run ``a``: the largest relative difference of a
+    logged loss term, with its step and name, and the relative L2
+    difference of the last checkpoint's STN and ll parameters."""
+    runs = {}
+    for name in (a, b):
+        run = os.path.join(d, "results", name)
+        runs[name] = dist_scalars(run), train_ckpt.load_checkpoint(
+            os.path.join(run, "checkpoints",
+                         f"{str(DIST_ITERS).zfill(7)}.pt"))
+    (sa, ca), (sb, cb) = runs[a], runs[b]
+    check(set(sa) == set(sb) and len(sa) == 3 * DIST_ITERS,
+          f"{a} and {b} logged different scalars")
+    rel = max((abs(sb[k] - v) / max(abs(v), 1e-30), k, v)
+              for k, v in sa.items() if v != 0 or sb[k] != 0)
+    l2 = {}
+    for part in ("t", "ll"):
+        x = torch.cat([torch.as_tensor(v).flatten().double()
+                       for v in ca[part].values()])
+        y = torch.cat([torch.as_tensor(cb[part][k]).flatten().double()
+                       for k in ca[part]])
+        l2[part] = float((x - y).norm() / x.norm())
+    return rel, l2
+
+
+def nccl_world_one(dev, card, d, gpath):
+    """cli.train through torchrun at world 1 (NCCL) against the same
+    command in this process. Returns the plain run's launches."""
+    nccl_rate, seconds = torchrun_train(d, gpath, "nccl")
+    plain_rate, launches = plain_train(d, gpath, "plain")
+    rel, l2 = compare_runs(d, "plain", "nccl")
+    # the spread that cuDNN's default algorithms give the same command
+    default_rate, more = plain_train(d, gpath, "default", False)
+    launches = {k: launches[k] + more[k] for k in LAUNCHES}
+    spread = compare_runs(d, "plain", "default")
+    ar_dev, ar_host, n_ar = annotation_ms(os.path.join(d, "trace_nccl"),
+                                          "all_reduce_grads")
+    check(annotation_ms(os.path.join(d, "trace_plain"),
+                        "all_reduce_grads")[2] == 0,
+          "the plain run all-reduced")
+    counts, _, _ = trace_kernels(os.path.join(d, "trace_nccl"))
+    steps = DIST_PROFILE[1] - DIST_PROFILE[0]
+    print(f"cuDNN's default algorithms against its deterministic ones, "
+          f"the same command without torchrun: {default_rate:.1f} imgs/s, "
+          f"loss terms {spread[0][0]:.3e} apart (step {spread[0][1][0]}, "
+          f"{spread[0][1][1]} {spread[0][2]:.6e}), the last checkpoint's "
+          f"STN {spread[1]['t']:.3e} and ll {spread[1]['ll']:.3e} in "
+          f"relative L2 (printed) [{card}]")
+    print(f"NCCL at world 1 (torchrun, {seconds:.1f} s with its start): "
+          f"{nccl_rate:.1f} imgs/s against {plain_rate:.1f} without "
+          f"torchrun, each over its iterations 2 to {DIST_PROFILE[0]} at "
+          f"batch {TRAIN_BATCH}, cuDNN's TF32 on and its deterministic "
+          f"algorithms in both; loss terms within "
+          f"{rel[0]:.3e} relative (the largest at step {rel[1][0]}, "
+          f"{rel[1][1]} {rel[2]:.6e}; gate {DIST_LOSS_RTOL}), the last "
+          f"checkpoint's parameters within {l2['t']:.3e} (STN) and "
+          f"{l2['ll']:.3e} (ll) in relative L2 (gate {DIST_PARAM_L2}); "
+          f"all_reduce_grads {ar_dev / steps:.4f} ms of device time and "
+          f"{ar_host / steps:.4f} ms of host time a step ({n_ar} calls in "
+          f"{steps} traced steps; the trace's K1 "
+          f"{counts['mipmap_pyramid_fwd']}, K3 "
+          f"{counts['mipmap_pyramid_dcoords']}) [{card}]")
+    check(rel[0] <= DIST_LOSS_RTOL, "torchrun's loss terms differ")
+    check(max(l2.values()) <= DIST_PARAM_L2, "torchrun's parameters differ")
+    check(n_ar == steps, f"{n_ar} all-reduces in {steps} traced steps")
+    check(counts["mipmap_pyramid_fwd"] > 0
+          and counts["mipmap_pyramid_dcoords"] > 0,
+          "torchrun's trace holds no K1 or no K3 kernel")
+    return launches
+
+
+def dist_modules(c, dev):
+    """The generator, perceptual trunk, STN and ll of a case on ``dev``."""
+    cfg = c["cfg"]
+    generator = Generator(cfg.g, device=dev)
+    generator.load_state_dict(c["g"])
+    generator.eval().requires_grad_(False)
+    lp = LPIPS(use_lins=cfg.loss_fn == "lpips", device=dev)
+    lp.load_state_dict(c["lp"])
+    lp.eval().requires_grad_(False)
+    loss = make_perceptual_loss(cfg.loss_fn)
+    t = ComposedSTN(cfg.t, device=dev)
+    t.load_state_dict(c["t"])
+    ll = LatentLearner(cfg.ll, device=dev)
+    ll.load_state_dict(c["ll"])
+    return generator, (lambda x, y: loss(lp, x, y)), t, ll
+
+
+def dist_inputs(c, dev, rows=None):
+    """A case's global z and noise on ``dev``; with ``rows`` (this rank
+    of ``rows[1]``) the block of rank ``rows[0]``."""
+    K = c["cfg"].t.num_heads
+    z = c["z"].to(dev)
+    noise = tuple([n.to(dev) for n in ns] for ns in c["noise"])
+    if rows is None:
+        return train_loop.rank_rows(z, noise, K)
+    r, world = rows
+    b = z.shape[0] // world
+    return z[r * b:(r + 1) * b], ([n[r * b:(r + 1) * b] for n in noise[0]],
+                                  [n[r * b * K:(r + 1) * b * K]
+                                   for n in noise[1]])
+
+
+def dist_step(c, dev, rows=None):
+    """One step of a case from its state: its metrics and gradients (CPU),
+    and the runner for more steps."""
+    generator, pfn, t, ll = dist_modules(c, dev)
+    z, noise = dist_inputs(c, dev, rows)
+    if "classifier" in c:
+        classifier = Classifier(c["cls_cfg"], device=dev)
+        classifier.load_state_dict(c["classifier"])
+        trainer = ClassifierTrainer(c["cfg"], classifier, generator,
+                                    t.eval(), ll, pfn)
+        run = lambda: trainer.step(z, 0.0, noise=noise)
+        m = run()
+        return m, {k: p.grad.cpu() for k, p in
+                   classifier.named_parameters()}, run
+    st = TrainState(c["cfg"], t, ll)
+    run = lambda: train_step(st, generator, pfn, z, 0.5, 0.0, 0.0,
+                             noise=noise)
+    m = run()
+    grads = {k: p.grad.cpu() for k, p in st.t.named_parameters()}
+    grads["ll.coefficients"] = st.ll.coefficients.grad.cpu()
+    return m, grads, run
+
+
+def dist_apps(c, dev):
+    """flow_scores, congeal_dataset and the mixed-reality video as
+    ``c`` says, on this rank's stripe."""
+    model = ComposedSTN(FLAGSHIP, device=dev)
+    model.load_state_dict(c["stn"])
+    zoom = ComposedSTN(FLAGSHIP, device=dev)
+    zoom.load_state_dict(c["zoom"])
+    points, colors, alphas = c["label"]
+    scores = flow_app.compute_flow_scores(
+        model.eval(), c["lmdb"], batch=DIST_APP_BATCH, save=False,
+        device=dev)
+    used = congeal_app.align_and_filter_dataset(
+        zoom.eval(), c["lmdb"], c["out"], batch=DIST_APP_BATCH, device=dev)
+    video = run_gangealing_on_video(
+        model, c["frames"], points=points, colors=colors, alphas=alphas,
+        sigma=AR_SIGMA, opacity=1.0, batch=DIST_APP_BATCH)
+    return scores, used, video
+
+
+def dist_rank(path, out, full=True):
+    """One rank of the two on the card, on torch's deterministic
+    algorithms (cuDNN's alone unless ``full``): each case's step (held)
+    and timed steps, then the apps; writes its results to
+    ``out``/rank<r>.pt."""
+    from gangealing_torch.parallel import mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.load_kernels()  # built by the parent: loaded, never built here
+    cases = torch.load(path, weights_only=False)
+    res = {}
+    zero_launches()
+    with deterministic(full) as seen:
+        for name in ("cats", "cars", "classifier"):
+            c = cases[name]
+            torch.cuda.reset_peak_memory_stats(dev)
+            m, grads, run = dist_step(c, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIST_TIMED):
+                run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            res[name] = dict(
+                metrics={k: v.cpu() for k, v in m.items()}, grads=grads,
+                rate=DIST_TIMED * c["z"].shape[0] / seconds,
+                peak=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            del run
+            torch.cuda.empty_cache()
+        res["apps"] = dist_apps(cases["apps"], dev)
+    res["warned"] = seen
+    res["launches"] = dict(LAUNCHES)
+    torch.save(res, os.path.join(out, f"rank{mesh.rank()}.pt"))
+
+
+def dist_cases(dev, d, gpath):
+    """The steps' and apps' state and inputs, made once here and read by
+    every rank: the cats and cars configurations with seeded random G,
+    perceptual trunks and STNs and a --debug cold start, the cars
+    classifier, global z and noise at two ranks' batches; and the apps'
+    flagship STN (and one zoomed in by about 11%, whose warps stay in the
+    image, so that congeal_dataset accepts images), LMDB, frames and
+    label."""
+    from gangealing_torch.models.classifier import classifier_config
+    cases = {}
+    specs = (("cats", cats_argv(d, gpath, 1), DIST_CATS_BATCH),
+             ("cars", cars_argv(d, gpath, 1, 1), DIST_CARS_BATCH),
+             ("classifier", cars_argv(d, gpath, 1, 1), DIST_CLS_BATCH))
+    for k, (name, argv, batch) in enumerate(specs):
+        args = train_cli.training_argparse().parse_args(argv)
+        cfg = dataclasses.replace(train_cli.build_configs(args),
+                                  batch=2 * batch)
+        rng = torch.Generator().manual_seed(40 + k)
+        t = ComposedSTN(cfg.t, device=dev, generator=rng)
+        ll = LatentLearner(cfg.ll, device=dev, generator=rng)
+        generator = Generator(cfg.g, device=dev)
+        generator.load_state_dict(train_ckpt.module_state(
+            train_ckpt.load_checkpoint(gpath)["g_ema"]))
+        with torch.no_grad():
+            for n, p in generator.named_parameters():
+                if n.endswith("noise.weight"):
+                    p.fill_(DIST_NOISE_WEIGHT)
+        lp, _ = train_cli.load_perceptual(args, dev, rng)
+        train_loop.cold_start_ll(ll, generator,
+                                 torch.Generator(dev).manual_seed(41),
+                                 debug=True)
+        z, noise = train_loop.draw_step_inputs(
+            generator, torch.Generator(dev).manual_seed(42 + k), cfg.batch,
+            cfg.t.num_heads)
+        sd = lambda m: {n: v.cpu() for n, v in m.state_dict().items()}
+        cases[name] = dict(cfg=cfg, g=sd(generator), lp=sd(lp), t=sd(t),
+                           ll=sd(ll), z=z.cpu(), noise=tuple(
+                               [n.cpu() for n in ns] for ns in noise))
+        if name == "classifier":
+            ccfg = classifier_config(cfg.t, 256)
+            cases[name].update(cls_cfg=ccfg, classifier=sd(Classifier(
+                ccfg, device=dev, generator=rng)))
+        del generator, lp, t, ll
+    # 0.05 noise on the flagship's weights, as served: at its init the
+    # flow head's last conv is zero and every flow score 0
+    model = ComposedSTN(FLAGSHIP, device=dev,
+                        generator=torch.Generator().manual_seed(43))
+    g = torch.Generator().manual_seed(46)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g).to(dev))
+    zoom = copy.deepcopy(model)
+    with torch.no_grad():
+        head = zoom.stns[0].warp_head.linear
+        head.weight.mul_(0.05)
+        head.bias.mul_(0.05)
+        head.bias[1] -= 0.12
+    lmdb = image_lmdb(os.path.join(d, "dist_images"), smooth_images(
+        DIST_IMAGES, torch.Generator().manual_seed(44)).numpy())
+    cases["apps"] = dict(
+        stn={n: v.cpu() for n, v in model.state_dict().items()},
+        zoom={n: v.cpu() for n, v in zoom.state_dict().items()},
+        lmdb=lmdb, out=os.path.join(d, "dist_congealed"),
+        frames=smooth_images(DIST_FRAMES,
+                             torch.Generator().manual_seed(45)),
+        label=synthetic_label()[0])
+    return cases
+
+
+def lmdb_images(path):
+    """The decoded images of an LMDB in key order."""
+    from PIL import Image
+    r = LMDBReader(path)
+    n = int(r.get(b"length"))
+    return [np.asarray(Image.open(io.BytesIO(r.get(
+        f"256-{str(i).zfill(5)}".encode()))).convert("RGB"), np.int32)
+        for i in range(n)]
+
+
+def dist_compare(name, got, want):
+    """Held to the bit; the largest tensor error over its largest value,
+    with its name, and the relative L2 error of all, printed."""
+    worst = max((float((got[k] - w).abs().max())
+                 / max(float(w.abs().max()), 1e-30), k)
+                for k, w in want.items())
+    a = torch.cat([got[k].flatten() for k in want])
+    b = torch.cat([w.flatten() for w in want.values()])
+    l2 = float((a - b).norm() / b.norm())
+    same = all(torch.equal(got[k], w) for k, w in want.items())
+    print(f"two gloo ranks, the {name} step: the all-reduced gradient "
+          f"against the one-process mean of the half-batch gradients: "
+          f"{'equal to the bit' if same else 'NOT equal'}; worst tensor "
+          f"{worst[1]} at {worst[0]:.3e} of its largest, all {l2:.3e} in "
+          f"relative L2")
+    check(same, f"{name}: the two ranks' gradient differs from the "
+          "half-batch mean")
+
+
+@contextlib.contextmanager
+def deterministic(full=True):
+    """torch's deterministic algorithms, cuDNN's among them, as each rank
+    takes them; an op that has none warns (``warn_only``). With ``full``
+    False, cuDNN's alone (chip_dist_determinism.py). Yields a set that
+    holds, on exit, the warnings raised inside."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    if full:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    seen = set()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
+        seen.update(str(w.message)[:160] for w in caught)
+
+
+def video_max_abs(a, b):
+    return {k: float(np.abs(a[k] - b[k]).max()) for k in b}
+
+
+def stripe_video(c, dev, frames, batch, world=1):
+    """The mixed-reality video of ``frames`` in this process, at
+    ``batch``; with ``world`` > 1 each rank's stripe run alone and the
+    results interleaved, the batches the ranks run."""
+    points, colors, alphas = c["label"]
+    model = ComposedSTN(FLAGSHIP, device=dev)
+    model.load_state_dict(c["stn"])
+    parts = [run_gangealing_on_video(
+        model.eval(), frames[r::world], points=points, colors=colors,
+        alphas=alphas, sigma=AR_SIGMA, opacity=1.0, batch=batch)
+        for r in range(world)]
+    out = {}
+    for k in parts[0]:
+        out[k] = np.zeros((frames.shape[0],) + parts[0][k].shape[1:],
+                          parts[0][k].dtype)
+        for r in range(world):
+            out[k][r::world] = parts[r][k]
+    return out
+
+
+def distributed(dev, card):
+    """The distributed phase. Returns the main path's launches: the plain
+    cli.train run's in this process and each rank's (each counted from
+    zero just before it)."""
+    start = time.perf_counter()
+    d = tempfile.mkdtemp()
+    gpath = os.path.join(d, "g.pt")
+    gen = Generator(GeneratorConfig(),
+                    generator=torch.Generator().manual_seed(3))
+    torch.save({"g_ema": gen.state_dict()}, gpath)
+    del gen
+    plain = nccl_world_one(dev, card, d, gpath)
+    t_nccl = time.perf_counter() - start
+    ranks = two_ranks(dev, card, d, gpath)
+    shutil.rmtree(d)
+    launches = {k: plain[k] + ranks[k] for k in LAUNCHES}
+    print(f"distributed phase: {time.perf_counter() - start:.1f} s (NCCL "
+          f"at world 1 {t_nccl:.1f} s); launches {launches} [{card}]")
+    return launches
+
+
+def two_ranks(dev, card, d, gpath):
+    """The steps and apps on two gloo ranks sharing the card, against one
+    process. Returns the ranks' launches, summed."""
+    from gangealing_torch.parallel.launch import spawn_ranks
+    cases = dist_cases(dev, d, gpath)
+    path = os.path.join(d, "cases.pt")
+    torch.save(cases, path)
+    out = os.path.join(d, "ranks")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn_ranks(dist_rank, 2, args=(path, out), backend="gloo",
+                device="cuda:0", timeout=DIST_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in LAUNCHES}
+    with deterministic() as seen:
+        held = dist_held(dev, card, d, cases, ranks)
+    print(f"two gloo ranks: {t_ranks:.1f} s with their starts; this "
+          f"process's references {held:.1f} s; launches {launches}; "
+          f"warned of no deterministic algorithm: ranks "
+          f"{sorted(ranks[0]['warned'])}, this process {sorted(seen)}")
+    return launches
+
+
+def dist_held(dev, card, d, cases, ranks):
+    """Hold the two ranks' results against this process's, on torch's
+    deterministic algorithms as the ranks ran. Returns its seconds."""
+    t0 = time.perf_counter()
+    for name in ("cats", "cars", "classifier"):
+        c = cases[name]
+        halves = [dist_step(c, dev, rows=(r, 2))[:2] for r in range(2)]
+        mean = {k: (halves[0][1][k] + halves[1][1][k]) / 2
+                for k in halves[0][1]}
+        check(all(torch.equal(ranks[0][name]["grads"][k],
+                              ranks[1][name]["grads"][k]) for k in mean),
+              f"{name}: the ranks hold different gradients")
+        dist_compare(name, ranks[0][name]["grads"], mean)
+        key = "labels" if name == "classifier" else "assignments"
+        if key in halves[0][0]:
+            got = torch.cat([ranks[r][name]["metrics"][key]
+                             for r in range(2)])
+            want = torch.cat([halves[r][0][key].cpu() for r in range(2)])
+            print(f"two gloo ranks, the {name} step: {key} {got.tolist()}, "
+                  f"one process {want.tolist()}")
+            check(torch.equal(got, want), f"{name}: the ranks' {key} differ")
+        print(f"two gloo ranks on one card, the {name} step at "
+              f"{c['z'].shape[0] // 2} a rank: "
+              f"{ranks[0][name]['rate']:.2f} imgs/s over both ranks, peak "
+              f"{ranks[0][name]['peak']:.2f} and {ranks[1][name]['peak']:.2f}"
+              f" GiB [{card}]")
+    c = cases["apps"]
+    one = dist_apps(dict(c, out=os.path.join(d, "one_rank")), dev)
+    (scores, used, video) = ranks[0]["apps"]
+    for r in range(2):
+        check(np.array_equal(ranks[r]["apps"][0], scores)
+              and ranks[r]["apps"][1] == used, "the ranks' apps differ")
+    s_err = float(np.abs(scores - one[0]).max()
+                  / np.abs(one[0]).max())
+    v_err = video_max_abs(video, stripe_video(c, dev, c["frames"],
+                                              DIST_APP_BATCH, world=2))
+    # printed: what the batches alone move
+    whole = video_max_abs(video, one[2])
+    w = c["frames"][:DIST_WITNESS_FRAMES]
+    witness = video_max_abs(*(stripe_video(c, dev, w, b)
+                              for b in DIST_WITNESS_BATCHES))
+    print(f"two gloo ranks, the apps over {DIST_IMAGES} images at "
+          f"{DIST_APP_BATCH} a batch: flow scores {s_err:.3e} relative, "
+          f"congeal_dataset kept {len(used)} of {DIST_IMAGES} (one rank "
+          f"{len(one[1])}); the video of {DIST_FRAMES} frames at "
+          f"{DIST_APP_BATCH} a batch against one rank running the same "
+          f"batches: {v_err} max abs; against one rank over all the frames "
+          f"at {DIST_APP_BATCH} (printed): {whole}; one rank on the first "
+          f"{DIST_WITNESS_FRAMES} frames at batch "
+          f"{DIST_WITNESS_BATCHES[0]} against {DIST_WITNESS_BATCHES[1]} "
+          f"(printed): {witness}")
+    check(s_err <= 1e-5, "flow scores over two ranks differ")
+    check(used == one[1] and 0 < len(used), "congeal_dataset's indices "
+          "differ over two ranks, or it kept no image")
+    # rank r aligned images r, r + 2, ... and wrote its accepted ones under
+    # its own prefix, so the LMDB holds rank 0's first
+    two_imgs = lmdb_images(os.path.join(d, "dist_congealed"))
+    one_imgs = lmdb_images(os.path.join(d, "one_rank"))
+    order = [i for r in range(2) for i in used if i % 2 == r]
+    lmdb_err = max(int(np.abs(a - one_imgs[used.index(i)]).max())
+                   for a, i in zip(two_imgs, order))
+    print(f"two gloo ranks, congeal_dataset's LMDB: {len(two_imgs)} images, "
+          f"each within {lmdb_err} uint8 levels of the one rank's")
+    check(len(two_imgs) == len(one_imgs) == len(used) and lmdb_err <= 1,
+          "congeal_dataset's LMDB differs over two ranks")
+    check(v_err["congealed"] <= OUT_TOL and v_err["propagated"] <= 1e-3,
+          "the mixed-reality frames differ over two ranks")
+    return time.perf_counter() - t0
+
+
 def main():
     start = time.perf_counter()
     dev, card = setup()
@@ -4132,6 +4848,7 @@ def main():
     bf16_launches, bf16_errs, bf16_rates = precision(
         dev, card, (train_rate, train_peak, cars_rate, cars_peak,
                     rates[128][0]))
+    dist_launches = distributed(dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
@@ -4190,7 +4907,9 @@ def main():
     # visuals), the AR apps, the eval apps, the cluster phase's cars run
     # (with its visuals), classifier CLI and AR apps, the visualize
     # phase's vis_correspondence CLI runs, and the precision phase's
-    # bfloat16 cli.train runs and congeal forwards, each run with every
+    # bfloat16 cli.train runs and congeal forwards, and the distributed
+    # phase's cli.train run without torchrun and its two gloo ranks' steps
+    # and apps (each rank's counts read in that rank), each run with every
     # count zeroed just before it.
     # The backward kernels of the antialias=False form and of an image that
     # needs a gradient run only in the side checks, which count under
@@ -4198,7 +4917,7 @@ def main():
     # check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
                 + eval_launches[k] + cluster_launches[k] + vis_launches[k]
-                + bf16_launches[k] for k in LAUNCHES}
+                + bf16_launches[k] + dist_launches[k] for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):

@@ -2,7 +2,8 @@
 
 It serves the flagship ComposedSTN congeal forward, trains GANgealing
 (``python -m gangealing_torch.cli.train``) and runs the AR object lenses
-(``python -m gangealing_torch.cli.mixed_reality``) on an NVIDIA H100,
+(``python -m gangealing_torch.cli.mixed_reality``) on an NVIDIA H100, or
+over ranks, one a card (``torchrun``; ``parallel/``),
 through CUDA kernels written by hand (``csrc/``): the mipmap and bilinear
 samplers, forward and backward, and the Gaussian splat. On CPU tensors
 every op runs its plain PyTorch version, which the tests hold against the

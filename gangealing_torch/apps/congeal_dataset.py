@@ -1,7 +1,8 @@
 """Align and filter a raw dataset with the similarity STN stage.
 
 Port of gangealing_tpu/apps/congeal_dataset.py (reference
-applications/congeal_dataset.py:21-107) on one device. Per image: border-pad
+applications/congeal_dataset.py:21-107), on one device or over ranks. Per
+image: border-pad
 to square (no resize) for sampling, and a flow_size version for
 regression; infer flips; a similarity-only forward with the out-of-bounds
 check; accept if the effective resolution (sqrt(det M) * min(w, h)) is high
@@ -25,6 +26,9 @@ from gangealing_torch.data.dataset import MultiResolutionDataset
 from gangealing_torch.data.prepare import border_pad, create_dataset
 from gangealing_torch.models.stn import make_3x3
 from gangealing_torch.ops.resample import interpolate_bilinear
+from gangealing_torch.parallel.mesh import (
+    all_gatherv_hosts, host_barrier, is_primary, process_stripe, rank,
+    world_size)
 
 
 def congeal_batch(model, x_in, x_big, image_bounds, output_resolution,
@@ -86,7 +90,14 @@ def align_and_filter_dataset(model, data_path, out, real_size=256,
     mode (README.md:227-232: images stored unresized under '0-' keys, each
     padded to its own square): batching needs one canvas, so the images
     are border-padded to their own square and bilinearly placed on the
-    dataset's largest square, rounded up to a multiple of 8."""
+    dataset's largest square, rounded up to a multiple of 8.
+
+    Over ranks each rank aligns its stride of the dataset and writes its
+    accepted PNGs into the shared folder under its own file-name prefix
+    (the reference's chr(ord('a') + rank), congeal_dataset.py:29-38), the
+    used indices are gathered (all_gatherv), and rank 0 alone builds the
+    LMDB; every rank returns all the indices. The LMDB holds the same
+    images as a one-rank run's, each rank's in a block of its own."""
     from PIL import Image
     device = resolve_device(device)
     model = model.to(device)
@@ -96,8 +107,10 @@ def align_and_filter_dataset(model, data_path, out, real_size=256,
     # Stale PNGs of an earlier run over the same ``out`` would be baked into
     # the new LMDB by create_dataset's '*.png' glob while
     # dataset_indices.pt lists only this run's indices.
-    for f in glob.glob(os.path.join(temp_folder, "*.png")):
-        os.remove(f)
+    if is_primary():
+        for f in glob.glob(os.path.join(temp_folder, "*.png")):
+            os.remove(f)
+    host_barrier("congeal_dataset_clean")
 
     dataset = _RawDataset(data_path, resolution=real_size)
     if flow_scores_path is not None:
@@ -107,10 +120,12 @@ def align_and_filter_dataset(model, data_path, out, real_size=256,
         index_map = list(range(len(dataset)))
     canvas = real_size or _native_canvas(dataset)
 
+    prefix = chr(ord("a") + rank()) if world_size() > 1 else ""
+    stripe = process_stripe(len(dataset))
     used_indices = []
     total = 0
-    for start in range(0, len(dataset), batch):
-        idxs = range(start, min(start + batch, len(dataset)))
+    for start in range(0, len(stripe), batch):
+        idxs = stripe[start:start + batch]
         x_in, x_big, bounds = [], [], []
         for i in idxs:
             img = dataset[i]
@@ -141,10 +156,14 @@ def align_and_filter_dataset(model, data_path, out, real_size=256,
             arr = np.clip((aligned[j] + 1) / 2, 0, 1)
             arr = (arr * 255 + 0.5).clip(0, 255).astype(np.uint8)
             Image.fromarray(arr.transpose(1, 2, 0)).save(
-                f"{temp_folder}/{total:07}.png")
+                f"{temp_folder}/{prefix}{total:07}.png")
             total += 1
-    used_indices = sorted(used_indices)
-    create_dataset(out, temp_folder, size=output_resolution, format="png",
-                   pattern="*.png", progress=False)
-    torch.save(torch.tensor(used_indices), f"{out}/dataset_indices.pt")
+    used_indices = sorted(all_gatherv_hosts(
+        np.asarray(used_indices, np.int64)).tolist())
+    host_barrier("congeal_dataset_pngs")  # every PNG on disk before the LMDB
+    if is_primary():
+        create_dataset(out, temp_folder, size=output_resolution,
+                       format="png", pattern="*.png", progress=False)
+        torch.save(torch.tensor(used_indices), f"{out}/dataset_indices.pt")
+    host_barrier("congeal_dataset_lmdb")  # the LMDB whole before any reader
     return used_indices

@@ -2,11 +2,12 @@
 of a video (augmented-reality "object lenses").
 
 Port of gangealing_tpu/apps/mixed_reality.py (reference
-applications/mixed_reality.py:83-300) on one device. Per batch of frames:
-center-crop to a square, decide the flips, uncongeal the label's points,
-splat and blend them onto the frames, and congeal the frames for the
-congealed video. The JAX package's mesh, process stripes and barrier are
-not here: one device renders every frame in order.
+applications/mixed_reality.py:83-300), on one device or over ranks. Per
+batch of frames: center-crop to a square, decide the flips, uncongeal the
+label's points, splat and blend them onto the frames, and congeal the
+frames for the congealed video. Over ranks each rank renders its stride of
+the frames (the reference's rank striding, mixed_reality.py:28-33), the
+frames are gathered back in order, and rank 0 alone writes the videos.
 
 Memory modes (reference :213-216, :239-243, :258-262):
   * ``save_frames=True`` writes each frame as a PNG to <out>/frames and
@@ -31,6 +32,8 @@ from gangealing_torch.apps.common import determine_flips
 from gangealing_torch.data.prepare import load_frame_paths, nchw_center_crop
 from gangealing_torch.models.stn import (
     composed_uncongeal_points, convert_points)
+from gangealing_torch.parallel.mesh import (
+    gather_process_stripes, host_barrier, is_primary, process_stripe)
 from gangealing_torch.utils.vis import (
     get_colorscale, images2grid, load_dense_label, load_pil, save_video,
     splat_points)
@@ -70,7 +73,7 @@ def _batch_of(frames, lazy_paths, blk, device):
             fb, _ = nchw_center_crop(fb)
         fb = torch.from_numpy(np.ascontiguousarray(fb))
     else:
-        fb = frames[blk[0]:blk[-1] + 1]
+        fb = frames[blk]
     return fb.to(device=device, dtype=torch.float32)
 
 
@@ -96,7 +99,11 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
     and 'correspondences' (T, P, 2) when ``save_correspondences``; and
     'average_frames', a list of (H, W, C) uint8 grids, with a classifier,
     ``average_path`` and a label. Writes propagated.mp4 and congealed.mp4
-    (and correspondences.pt, average.mp4) when ``out_dir`` is given."""
+    (and correspondences.pt, average.mp4) when ``out_dir`` is given.
+
+    Over ranks every rank returns all the frames and rank 0 writes the
+    files; with ``save_frames`` each rank writes the PNGs of its own
+    frames, named by their global index."""
     if classifier is None and model.cfg.num_heads > 1:
         raise ValueError("a clustering model needs its cluster classifier")
     device = next(model.parameters()).device
@@ -132,9 +139,10 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
                                            resolution, sigma, opacity)
         inactive = averages * _INACTIVE_ALPHA - (1 - _INACTIVE_ALPHA)
 
+    stripe = process_stripe(T)
     propagated, congealed, correspondences, average_frames = [], [], [], []
-    for s in range(0, T, batch):
-        blk = list(range(s, min(s + batch, T)))
+    for s in range(0, len(stripe), batch):
+        blk = stripe[s:s + batch]  # the global indices of the batch
         fb = _batch_of(frames, lazy_paths, blk, device)
         n = fb.shape[0]
         S = fb.shape[-1]
@@ -200,12 +208,17 @@ def run_gangealing_on_video(model, frames, label_path=None, points=None,
 
     result = {}
     if not save_frames:
-        result["congealed"] = np.concatenate(congealed, 0)
+        result["congealed"] = gather_process_stripes(congealed, T)
         if objects and points is not None:
-            result["propagated"] = np.concatenate(propagated, 0)
+            result["propagated"] = gather_process_stripes(propagated, T)
     if save_correspondences and points is not None and objects:
-        result["correspondences"] = np.concatenate(correspondences, 0)
-    if out_dir is not None:
+        result["correspondences"] = gather_process_stripes(correspondences, T)
+    if averages is not None:
+        average_frames = list(gather_process_stripes(
+            [np.stack(average_frames)] if average_frames else [], T))
+    if out_dir is not None and save_frames:
+        host_barrier("mixed_reality_frames")  # every PNG on disk first
+    if out_dir is not None and is_primary():
         _write_videos(result, out_dir, T, fps, save_frames)
         if average_frames:
             save_video(average_frames, fps,

@@ -1,7 +1,8 @@
 """PCK-Transfer evaluation, the paper's headline correctness metric.
 
 Port of gangealing_tpu/apps/pck.py (reference applications/pck.py:18-175)
-on one device. Protocol:
+on one device or over ranks, each rank on its stride of the pairs with the
+counts summed over the ranks. Protocol:
   * SPair-71K: fixed pairs, per-image alpha*bbox thresholds
     (threshB*scaleB), one-way unless ``transfer_both_ways``.
   * CUB: random pairs, alpha*max(H,W) threshold, bidirectional.
@@ -24,6 +25,8 @@ from gangealing_torch.apps.common import load_stn
 from gangealing_torch.data.dataset import DataLoader, PCKDataset
 from gangealing_torch.models.stn import (
     composed_match_flows, composed_transfer_points)
+from gangealing_torch.parallel.mesh import (
+    all_gather_hosts, rank, world_size)
 
 
 def pck_batch(model, imgsA, imgsB, kpsA, kpsB, visible, threshA, threshB,
@@ -92,7 +95,10 @@ def pck_transfer(model, loader, alphas=(0.1,),
                  transfer_both_ways=True, permutation=None, progress=False):
     """Run PCK-Transfer over ``loader`` (an iterable of dict batches) on the
     model's device. Returns an (A,) numpy array of PCK per alpha
-    (applications/pck.py:104)."""
+    (applications/pck.py:104). Over ranks the correct counts and the
+    visible key points are summed over the ranks (the reference's
+    all_gather(...).sum, pck.py:172-174); the caller gives each rank its
+    stripe of the pairs (``pck_loader``)."""
     device = next(model.parameters()).device
     correct = np.zeros(len(alphas), np.float64)
     kps_seen = 0.0
@@ -120,7 +126,23 @@ def pck_transfer(model, loader, alphas=(0.1,),
             print(f"\rpck pairs: {pairs_seen}", end="", flush=True)
     if progress:
         print()
+    if world_size() > 1:
+        correct = all_gather_hosts(correct).sum(axis=0)
+        kps_seen = float(all_gather_hosts(
+            np.asarray([kps_seen], np.float64)).sum())
     return correct / max(kps_seen, 1.0)
+
+
+def pck_loader(dset, batch, num_pairs):
+    """This rank's loader over the pairs and the number of pairs it takes:
+    the stride [r, r+W, ...] of the pairs (wrapped to equal length, as the
+    reference's DistributedSampler), ceil(num_pairs / W) of them, so a
+    tail that W does not divide is counted once a rank that saw it
+    (gangealing_tpu/apps/pck.py:261-273)."""
+    W = world_size()
+    loader = DataLoader(dset, batch_size=batch, shuffle=False,
+                        drop_last=False, num_shards=W, shard_index=rank())
+    return loader, (num_pairs + W - 1) // W
 
 
 def vis_transfer(model, loader, permutation=None, out_dir="visuals",
@@ -193,10 +215,7 @@ def run_pck(ckpt_path, data_path, alphas=(0.1, 0.05, 0.01), real_size=256,
     SPair protocol (reference README.md:207); pass True for CUB."""
     model, _ = load_stn(ckpt_path, supersize=real_size, device=device)
     dset = PCKDataset(data_path, resolution=real_size, seed=seed)
-    if num_pairs is None:
-        num_pairs = len(dset)
-    loader = DataLoader(dset, batch_size=batch, shuffle=False,
-                        drop_last=False)
+    loader, num_pairs = pck_loader(dset, batch, num_pairs or len(dset))
     pck = pck_transfer(model, loader, alphas=alphas, num_pairs=num_pairs,
                        iters=iters, padding_mode=padding_mode,
                        match_flows=not no_flip_inference,

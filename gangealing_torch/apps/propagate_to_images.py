@@ -2,18 +2,19 @@
 propagation onto each of them.
 
 Port of gangealing_tpu/apps/propagate_to_images.py (reference
-applications/propagate_to_images.py:44-104) on one device: the machinery
-of mixed_reality over an image set.
+applications/propagate_to_images.py:44-104), on one device or over ranks:
+the machinery of mixed_reality over an image set.
 """
 
 import os
 
-import numpy as np
 import torch
 
 from gangealing_torch.apps.common import determine_flips
 from gangealing_torch.models.stn import (
     composed_uncongeal_points, convert_points)
+from gangealing_torch.parallel.mesh import (
+    gather_process_stripes, is_primary, process_stripe)
 from gangealing_torch.utils.vis import (
     load_dense_label, load_pil, save_image, splat_points)
 
@@ -60,7 +61,12 @@ def propagate_to_images(model, images, label_path=None, sigma=1.2,
     number of leading images averaged into 'average_congealed' (reference
     --n_mean); 0 skips the average. ``classifier``: the cluster classifier
     of a clustering model, which picks each image's cluster and flip, or
-    only the flip within ``cluster``."""
+    only the flip within ``cluster``.
+
+    Over ranks each rank congeals its stride of the images (the
+    reference's DistributedSampler striding, propagate_to_images.py:90-96);
+    the results are gathered back in image order and only rank 0 writes
+    files. Every rank returns all the results."""
     if classifier is None and model.cfg.num_heads > 1:
         raise ValueError("a clustering model needs its cluster classifier")
     device = next(model.parameters()).device
@@ -75,9 +81,11 @@ def propagate_to_images(model, images, label_path=None, sigma=1.2,
         points, alphas = points.to(device), alphas.to(device)
         if colors is not None:
             colors = colors.to(device)
+    stripe = process_stripe(N)
     congealed, propagated = [], []
-    for s in range(0, N, batch):
-        xb = images[s:s + batch].to(device=device, dtype=torch.float32)
+    for s in range(0, len(stripe), batch):
+        xb = images[stripe[s:s + batch]].to(device=device,
+                                            dtype=torch.float32)
         n = xb.shape[0]
         with torch.inference_mode():
             flipped, flip_idx, warp_policy, _ = determine_flips(
@@ -105,15 +113,15 @@ def propagate_to_images(model, images, label_path=None, sigma=1.2,
                 blend_alg=blend_alg)
             propagated.append(out.cpu().numpy())
 
-    result = {"congealed": np.concatenate(congealed, 0)}
+    result = {"congealed": gather_process_stripes(congealed, N)}
     if average_n is None or average_n > 0:
         avg_src = result["congealed"]
         if average_n is not None:
             avg_src = avg_src[:average_n]
         result["average_congealed"] = avg_src.mean(axis=0, keepdims=True)
     if points is not None:
-        result["propagated"] = np.concatenate(propagated, 0)
-    if out_dir is not None:
+        result["propagated"] = gather_process_stripes(propagated, N)
+    if out_dir is not None and is_primary():
         os.makedirs(out_dir, exist_ok=True)
         save_image(result["congealed"], os.path.join(out_dir, "congealed.png"),
                    normalize=True, range=(-1, 1))

@@ -1,4 +1,4 @@
-"""Correspondence visualization videos on one device.
+"""Correspondence visualization videos.
 
 Port of gangealing_tpu/apps/vis_correspondence.py (reference
 applications/vis_correspondence.py:32-437) without its mesh arguments:
@@ -6,7 +6,9 @@ smooth congealing videos (the warp lerped from the identity by alpha over
 time), dense correspondence and edit propagation videos, per-cluster
 bucketing of real images and average-image videos. Every function runs on
 the device of the model (or classifier) it is given; frames are made on
-the host as (H, W, 3) uint8 grids.
+the host as (H, W, 3) uint8 grids. Over ranks the average-image video sums
+each rank's stride of the images and the bucketing gathers each rank's
+assignments; the smooth videos render on one rank.
 """
 
 import math
@@ -24,6 +26,9 @@ from gangealing_torch.models.stn import (
 from gangealing_torch.ops.grid_sample import identity_grid
 from gangealing_torch.ops.mipmap import mipmap_warp
 from gangealing_torch.ops.resample import interpolate_bilinear
+from gangealing_torch.parallel.mesh import (
+    all_gather_hosts, gather_process_stripes, is_primary, process_stripe,
+    world_size)
 from gangealing_torch.utils.vis import (
     images2grid, load_dense_label, save_video, splat_points)
 
@@ -115,22 +120,30 @@ def average_image_video(model, images, num_frames=60, iters=1,
                         batch=16):
     """Animate the average congealed image sharpening as alpha goes 0->1
     (vis_correspondence.py:335-437): each frame sums the warped images in
-    batches of ``batch`` on the device and averages them on the host."""
+    batches of ``batch`` on the device and averages them on the host.
+
+    Over ranks each rank sums its stride of the images, the partial sums
+    are summed over the ranks (the reference's per-rank shards and
+    all_gather mean, vis_correspondence.py:338-379), and rank 0 writes the
+    video; every rank returns the frames."""
     dev = _device(model)
     images = torch.as_tensor(images)
     N, C, S, _ = images.shape
+    stripe = process_stripe(N)
     frames = []
     for a in interpolation_alphas(num_frames):
         acc = np.zeros((C, S, S), np.float32)
-        for s in range(0, N, batch):
-            xb = _on(images[s:s + batch], dev)
+        for s in range(0, len(stripe), batch):
+            xb = _on(images[stripe[s:s + batch]], dev)
             out, _, _, _, _ = model(
                 xb, output_resolution=S, iters=iters,
                 alpha=torch.full((xb.shape[0],), float(a), device=dev),
                 padding_mode=padding_mode)
             acc += out.sum(0).cpu().numpy()
+        if world_size() > 1:
+            acc = all_gather_hosts(acc).sum(axis=0)
         frames.append(images2grid((acc / N)[None], nrow=1, normalize=True))
-    if out_path is not None:
+    if out_path is not None and is_primary():
         save_video(frames, fps, out_path)
     return frames
 
@@ -139,13 +152,16 @@ def average_image_video(model, images, num_frames=60, iters=1,
 def bucket_real_images_by_cluster(classifier, images, num_heads, batch=32):
     """Assign real images to clusters with the cluster classifier
     (vis_correspondence.py:301-332). Returns a list of index arrays, one
-    a cluster."""
+    a cluster. Over ranks each rank classifies its stride of the images
+    and the assignments are gathered back in image order."""
     dev = _device(classifier)
     images = torch.as_tensor(images)
-    assignments = [classifier_assign(classifier, _on(images[s:s + batch], dev),
-                                     ignore_flips=True).cpu().numpy()
-                   for s in range(0, images.shape[0], batch)]
-    assignments = np.concatenate(assignments)
+    N = images.shape[0]
+    stripe = process_stripe(N)
+    assignments = [classifier_assign(
+        classifier, _on(images[stripe[s:s + batch]], dev),
+        ignore_flips=True).cpu().numpy() for s in range(0, len(stripe), batch)]
+    assignments = gather_process_stripes(assignments, N)
     return [np.where(assignments == k)[0] for k in range(num_heads)]
 
 

@@ -6,9 +6,12 @@ applications/__init__.py:7-27 for the eval flags). Flag names and defaults
 are the JAX package's, so launch scripts carry over unchanged; the port's
 CLIs refuse the flags of what they do not run yet, naming the slice that
 brings it, and what the JAX CLIs refuse, for the JAX CLIs' reason.
+``--num_devices`` names the world size: one rank drives one card, so there
+is no local mesh for it to cap.
 """
 
 import argparse
+import os
 
 
 def base_training_argparse():
@@ -114,10 +117,6 @@ def base_eval_argparse():
     return p
 
 
-MULTI_GPU = ("--num_devices > 1 is not ported to gangealing_torch yet; it "
-             "comes with the multi-GPU slice")
-
-
 def add_device(parser):
     """The port's one flag beyond the JAX package's: the torch device."""
     parser.add_argument("--device", type=str, default="cuda",
@@ -127,11 +126,19 @@ def add_device(parser):
 
 
 def refuse_later_slices(parser, args, unclustered=None):
-    """Refuse an eval CLI's flags of what the port does not run yet; with
+    """Refuse an eval CLI's flags of what the port does not run: a
+    ``--num_devices`` other than the world size (each rank drives one
+    card; launch that many ranks with torchrun instead) and, with
     ``unclustered``, the name of an app that takes no clustering model,
-    refuse ``--num_heads`` other than 1 as the JAX CLI of that app does
+    ``--num_heads`` other than 1, as the JAX CLI of that app does
     (gangealing_tpu/cli/flow_scores.py:8, cli/congeal_dataset.py:14)."""
-    if args.num_devices is not None and args.num_devices > 1:
-        parser.error(MULTI_GPU)
+    world = int(os.environ.get("WORLD_SIZE", "1"))  # torchrun's
+    if args.num_devices is not None and args.num_devices != world:
+        parser.error(
+            f"--num_devices {args.num_devices} differs from the world size "
+            f"({world}): each rank drives one card, so launch "
+            f"{args.num_devices} ranks with torchrun (python -m "
+            f"torch.distributed.run --nproc_per_node {args.num_devices} "
+            "-m gangealing_torch.cli.<app> ...) instead")
     if unclustered is not None and args.num_heads != 1:
         parser.error(f"clustering not supported for {unclustered}")

@@ -1,4 +1,4 @@
-"""Dataset congealing CLI on one device (port of
+"""Dataset congealing CLI on one card or over ranks (port of
 gangealing_tpu/cli/congeal_dataset.py; reference
 applications/congeal_dataset.py).
 
@@ -6,9 +6,10 @@ applications/congeal_dataset.py).
         --real_data_path data/cats --out data/cats_aligned
 
 The flags are the JAX package's and ``--device``, default ``cuda``: the
-run raises when no card is visible. ``--num_devices`` above 1 comes with
-the multi-GPU slice; ``--num_heads`` other than 1 is refused, as the JAX
-CLI refuses it.
+run raises when no card is visible. Under ``torchrun`` each rank aligns
+its stride of the dataset on ``cuda:LOCAL_RANK`` and rank 0 writes the
+LMDB; ``--num_devices``, when given, must equal the world size.
+``--num_heads`` other than 1 is refused, as the JAX CLI refuses it.
 """
 
 from gangealing_torch.cli.args import (
@@ -33,6 +34,8 @@ def main(argv=None):
 
     from gangealing_torch.apps.common import load_stn
     from gangealing_torch.apps.congeal_dataset import align_and_filter_dataset
+    from gangealing_torch.parallel.mesh import init_from_env
+    args.device = init_from_env(device=args.device)
 
     model, _ = load_stn(args.ckpt, supersize=args.real_size,
                         override=args.override, device=args.device)

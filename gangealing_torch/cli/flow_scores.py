@@ -1,13 +1,15 @@
-"""Flow-score CLI on one device (port of gangealing_tpu/cli/flow_scores.py;
-reference applications/flow_scores.py).
+"""Flow-score CLI on one card or over ranks (port of
+gangealing_tpu/cli/flow_scores.py; reference applications/flow_scores.py).
 
     python -m gangealing_torch.cli.flow_scores --ckpt cat.pt \
         --real_data_path data/cats
 
 The flags are the JAX package's ``base_eval_argparse`` and ``--device``,
-default ``cuda``: the run raises when no card is visible. ``--num_devices``
-above 1 comes with the multi-GPU slice; ``--num_heads`` other than 1 is
-refused, as the JAX CLI refuses it.
+default ``cuda``: the run raises when no card is visible. Under
+``torchrun`` each rank scores its stride of the dataset on
+``cuda:LOCAL_RANK`` and rank 0 writes the cache; ``--num_devices``, when
+given, must equal the world size. ``--num_heads`` other than 1 is refused,
+as the JAX CLI refuses it.
 """
 
 from gangealing_torch.cli.args import (
@@ -23,6 +25,8 @@ def main(argv=None):
     parser = flow_scores_argparse()
     args = parser.parse_args(argv)
     refuse_later_slices(parser, args, unclustered="flow_scores")
+    from gangealing_torch.parallel.mesh import init_from_env
+    args.device = init_from_env(device=args.device)
     from gangealing_torch.apps.common import load_stn
     from gangealing_torch.apps.flow_scores import compute_flow_scores
 

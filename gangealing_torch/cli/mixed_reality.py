@@ -1,4 +1,4 @@
-"""Mixed-reality video CLI on one device (port of
+"""Mixed-reality video CLI on one card or over ranks (port of
 gangealing_tpu/cli/mixed_reality.py; reference
 applications/mixed_reality.py).
 
@@ -8,8 +8,10 @@ applications/mixed_reality.py).
 The flags are the JAX package's (``base_eval_argparse`` plus the app's
 own) and ``--device``, default ``cuda``: the run raises when no card is
 visible. A clustering model runs with the cluster classifier its
-checkpoint holds (``--cluster``, ``--average_path``). ``--num_devices``
-above 1 comes with the multi-GPU slice.
+checkpoint holds (``--cluster``, ``--average_path``). Under ``torchrun``
+each rank renders its stride of the frames on ``cuda:LOCAL_RANK`` and
+rank 0 writes the videos; ``--num_devices``, when given, must equal the
+world size.
 """
 
 import os
@@ -57,6 +59,8 @@ def main(argv=None):
     from gangealing_torch.apps.mixed_reality import run_gangealing_on_video
     from gangealing_torch.data.prepare import (
         list_frame_paths, load_video_frames)
+    from gangealing_torch.parallel.mesh import init_from_env
+    args.device = init_from_env(device=args.device)
 
     model, _, classifier = load_stn(
         args.ckpt, supersize=args.real_size, override=args.override,

@@ -1,4 +1,4 @@
-"""Static-image propagation CLI on one device (port of
+"""Static-image propagation CLI on one card or over ranks (port of
 gangealing_tpu/cli/propagate_to_images.py; reference
 applications/propagate_to_images.py, flags :108-138).
 
@@ -7,8 +7,10 @@ applications/propagate_to_images.py, flags :108-138).
 
 The flags are the JAX package's and ``--device``, default ``cuda``: the
 run raises when no card is visible. A clustering model runs with the
-cluster classifier its checkpoint holds (``--cluster``). ``--num_devices``
-above 1 comes with the multi-GPU slice.
+cluster classifier its checkpoint holds (``--cluster``). Under
+``torchrun`` each rank propagates to its stride of the images on
+``cuda:LOCAL_RANK`` and rank 0 writes the visuals; ``--num_devices``,
+when given, must equal the world size.
 """
 
 import os
@@ -72,6 +74,8 @@ def main(argv=None):
     from gangealing_torch.apps.propagate_to_images import (
         annotate_average, propagate_to_images)
     from gangealing_torch.data.dataset import MultiResolutionDataset
+    from gangealing_torch.parallel.mesh import init_from_env, is_primary
+    args.device = init_from_env(device=args.device)
 
     model, _, classifier = load_stn(
         args.ckpt, supersize=args.real_size, override=args.override,
@@ -98,6 +102,8 @@ def main(argv=None):
         print("warning: --average_path is only used together with "
               "--label_path (the label is splatted onto the average); "
               "ignoring it (reference make_visuals semantics)")
+    if not is_primary():
+        return result
     if args.average_path is not None and args.label_path is not None:
         result["average_annotated"] = annotate_average(
             args.average_path, args.label_path, args.real_size,

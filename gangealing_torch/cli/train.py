@@ -1,13 +1,21 @@
-"""Training CLI on one card (port of gangealing_tpu/cli/train.py).
+"""Training CLI on one card or over ranks (port of
+gangealing_tpu/cli/train.py).
 
     python -m gangealing_torch.cli.train --exp-name cats --ckpt cat.pt \
         --load_G_only --padding_mode border --batch 40 --vis_every 5000 \
         --real_data_path data/lsun_cats [...]
 
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m gangealing_torch.cli.train --batch 5 [...]
+
 The flags are the JAX package's (``base_training_argparse``, the port's
 copy in cli/args.py) plus ``--device``, default ``cuda``: the run raises
-when no card is visible, and ``--device cpu`` runs it on the CPU.
-``--batch`` is the batch of the one device. ``--num_heads K`` and
+when no card is visible, and ``--device cpu`` runs it on the CPU. Under
+``torchrun`` each rank drives the card ``cuda:LOCAL_RANK`` (NCCL; gloo on
+the CPU) and ``--batch`` is the batch of one rank: the global batch is
+``--batch`` times the world size, as the JAX CLI multiplies it by the
+device count. The ranks average their gradients before each Adam step and
+only rank 0 writes files. ``--num_heads K`` and
 ``--flips`` train a clustering model (scripts/training/lsun_cars.sh); its
 cold start picks the K centroids by K-Means++, or takes the first K
 latents of the PCA pool with ``--debug``. The training visuals are drawn
@@ -26,7 +34,6 @@ import os
 import numpy as np
 import torch
 
-from gangealing_torch.apps.common import resolve_device
 from gangealing_torch.cli.args import base_training_argparse
 from gangealing_torch.data.dataset import DataLoader, MultiResolutionDataset
 from gangealing_torch.models.latent_learner import (
@@ -36,6 +43,8 @@ from gangealing_torch.models.lpips import (
     LPIPS, import_torchvision_vgg, make_perceptual_loss)
 from gangealing_torch.models.stn import ComposedSTN, ComposedSTNConfig
 from gangealing_torch.models.stylegan2 import Generator, GeneratorConfig
+from gangealing_torch.parallel.mesh import (
+    broadcast_modules, host_barrier, init_from_env, is_primary, world_size)
 from gangealing_torch.train.checkpoint import (
     latest_checkpoint, load_checkpoint, module_state, parse_start_iter, resume)
 from gangealing_torch.train.loop import cold_start_ll, train_gangealing
@@ -56,6 +65,8 @@ def check_supported(parser, args):
 
 
 def build_configs(args):
+    """The run's configurations; its batch is the global one, ``--batch``
+    times the world size."""
     g_cfg = GeneratorConfig(size=args.gen_size, style_dim=args.dim_latent,
                             n_mlp=args.n_mlp,
                             channel_multiplier=args.gen_channel_multiplier,
@@ -70,7 +81,8 @@ def build_configs(args):
                                  num_heads=args.num_heads,
                                  style_dim=args.dim_latent)
     return TrainConfig(
-        g=g_cfg, t=t_cfg, ll=ll_cfg, batch=args.batch, stn_lr=args.stn_lr,
+        g=g_cfg, t=t_cfg, ll=ll_cfg, batch=args.batch * world_size(),
+        stn_lr=args.stn_lr,
         ll_lr=args.ll_lr, tv_weight=args.tv_weight,
         flow_identity_weight=args.flow_identity_weight,
         freeze_ll=args.freeze_ll, flips=args.flips,
@@ -142,10 +154,11 @@ def main(argv=None):
     check_supported(parser, args)
     args.n_mean = 200 if args.debug else args.n_mean
     args.vis_batch_size //= args.num_heads
-    device = resolve_device(args.device)
+    device = init_from_env(device=args.device)
     results_path = os.path.join(args.results, args.exp_name)
     os.makedirs(results_path, exist_ok=True)
     if args.auto_resume:
+        host_barrier("auto_resume")  # every rank reads the same checkpoint
         latest = latest_checkpoint(results_path)
         if latest is not None:
             print(f"--auto_resume: picking up from {latest}")
@@ -176,7 +189,10 @@ def main(argv=None):
         cold_start_ll(ll, generator,
                       torch.Generator(device).manual_seed(args.seed * 8 + 3),
                       debug=args.debug, perceptual_fn=perceptual_fn)
-    real_loader, sample_reals = real_images(args)
+    # every rank ran the cold start; rank 0's result holds for all
+    broadcast_modules(t, ll, state.t_ema)
+    real_loader, sample_reals = real_images(args) if is_primary() \
+        else (None, None)
     train_gangealing(state, generator, perceptual_fn, results_path,
                      start_iter=start_iter, seed=args.seed,
                      log_every=args.log_every, ckpt_every=args.ckpt_every,

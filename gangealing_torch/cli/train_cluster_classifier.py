@@ -1,4 +1,4 @@
-"""Cluster classifier training CLI on one device (port of
+"""Cluster classifier training CLI on one card or over ranks (port of
 gangealing_tpu/cli/train_cluster_classifier.py; reference
 train_cluster_classifier.py).
 
@@ -10,7 +10,9 @@ The flags are the training CLI's (the JAX package's plus ``--device``,
 default ``cuda``) and ``--cls_lr``. G, the STN's EMA and the latent
 learner come from the GANgealing checkpoint ``--ckpt``; the classifier
 resumes from its ``classifier`` entry when it has one and otherwise starts
-from the similarity STN's encoder. Writes
+from the similarity STN's encoder. Under ``torchrun`` ``--batch`` is the
+batch of one rank, as in cli/train.py, and only rank 0 writes the scalars
+and the checkpoint. Writes
 <results>/<exp-name>/checkpoints/classifier.pt: the checkpoint's own
 entries plus ``classifier``, the reference schema.
 """
@@ -19,12 +21,12 @@ import os
 
 import torch
 
-from gangealing_torch.apps.common import resolve_device
 from gangealing_torch.cli import train as train_cli
 from gangealing_torch.models.classifier import Classifier, classifier_config
 from gangealing_torch.models.latent_learner import LatentLearner
 from gangealing_torch.models.stn import ComposedSTN
 from gangealing_torch.models.stylegan2 import Generator
+from gangealing_torch.parallel.mesh import init_from_env, is_primary
 from gangealing_torch.train.checkpoint import load_checkpoint, module_state
 from gangealing_torch.train.classifier_train import (
     ClassifierTrainer, train_cluster_classifier, warm_start_from_stn)
@@ -51,7 +53,7 @@ def main(argv=None):
     if not (args.num_heads > 1 or args.flips):
         parser.error("classifier training needs a clustering (or flips) "
                      "model")
-    device = resolve_device(args.device)
+    device = init_from_env(device=args.device)
     cfg = train_cli.build_configs(args)
     rngs = [torch.Generator().manual_seed(args.seed * 8 + k) for k in range(3)]
     _, perceptual_fn = train_cli.load_perceptual(args, device, rngs[2])
@@ -72,16 +74,19 @@ def main(argv=None):
         warm_start_from_stn(classifier, stn.state_dict())
 
     results_path = os.path.join(args.results, args.exp_name)
-    writer = GANgealingWriter(results_path)
+    writer = GANgealingWriter(results_path) if is_primary() else None
     try:
         metrics = train_cluster_classifier(
             ClassifierTrainer(cfg, classifier, generator, stn, ll,
                               perceptual_fn, cls_lr=args.cls_lr),
             iters=args.iter, cls_lr=args.cls_lr, period=args.period,
             decay=args.decay, tm=args.tm, seed=args.seed,
-            log_every=args.log_every, writer=writer)
+            log_every=args.log_every, writer=writer, progress=is_primary())
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
+    if not is_primary():
+        return classifier, metrics
     out = os.path.join(results_path, "checkpoints", "classifier.pt")
     torch.save({**ckpt, "classifier": {
         k: v.detach().cpu() for k, v in classifier.state_dict().items()}},

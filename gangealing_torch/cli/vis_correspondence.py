@@ -1,4 +1,4 @@
-"""Correspondence-visualization CLI on one device (port of
+"""Correspondence-visualization CLI on one card or over ranks (port of
 gangealing_tpu/cli/vis_correspondence.py; reference
 applications/vis_correspondence.py:440-492).
 
@@ -12,8 +12,11 @@ label through the animation both ways, and write smoothly_congeal.mp4,
 smoothly_propagate.mp4 and smooth_correspondence.mp4 into ``--out``;
 "congeal", "propagate" and "average" write one video each. The flags are
 the JAX package's and ``--device``, default ``cuda``: the run raises when
-no card is visible. ``--num_devices`` above 1 comes with the multi-GPU
-slice.
+no card is visible. Under ``torchrun`` the "average" mode sums each
+rank's stride of the images on ``cuda:LOCAL_RANK``; the other modes render
+on rank 0 alone, as the reference runs them on one GPU
+(vis_correspondence.py:489), and the other ranks return at once.
+``--num_devices``, when given, must equal the world size.
 """
 
 import os
@@ -64,6 +67,13 @@ def main(argv=None):
     parser = vis_correspondence_argparse()
     args = parser.parse_args(argv)
     refuse_later_slices(parser, args)
+    from gangealing_torch.parallel.mesh import (
+        init_from_env, is_primary, rank)
+    args.device = init_from_env(device=args.device)
+    if args.mode != "average" and not is_primary():
+        print(f"vis_correspondence --mode {args.mode} renders on rank 0 "
+              f"only; rank {rank()} returns")
+        return None
 
     from gangealing_torch.apps import vis_correspondence as vc
     from gangealing_torch.apps.common import load_stn

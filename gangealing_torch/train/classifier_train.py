@@ -2,20 +2,26 @@
 frozen.
 
 Port of gangealing_tpu/train/classifier_train.py (reference
-train_cluster_classifier.py:30-137,175-215) on one device. Each step makes
-fakes, assigns each to the head (and flip) whose congealed image is
-nearest its target under the frozen STN, and trains the classifier with
-cross-entropy on those assignments. The classifier starts from the
-similarity STN's encoder (:184-189).
+train_cluster_classifier.py:30-137,175-215), on one device or over ranks.
+Each step makes fakes, assigns each to the head (and flip) whose congealed
+image is nearest its target under the frozen STN, and trains the
+classifier with cross-entropy on those assignments. The classifier starts
+from the similarity STN's encoder (:184-189). Over ranks every rank draws
+the global batch's z and noise and keeps its rows, as the train loop does,
+and the classifier's gradients and the metrics are averaged over the
+ranks.
 """
 
 import torch
 import torch.nn.functional as F
 
 from gangealing_torch.models.classifier import reverse_topk_accuracy
+from gangealing_torch.parallel.mesh import (
+    all_reduce_grads, mean_over_ranks, world_size)
 from gangealing_torch.train.annealing import lr_used_at_iter
 from gangealing_torch.train.losses import assign_fake_images_to_clusters
-from gangealing_torch.train.loop import iteration_rng
+from gangealing_torch.train.loop import (
+    draw_step_inputs, iteration_rng, rank_rows)
 from gangealing_torch.train.state import make_adam, set_lr
 
 
@@ -51,11 +57,12 @@ class ClassifierTrainer:
         self.total_clusters = cfg.t.num_heads * (1 + cfg.flips)
 
     def step(self, z, lr, noise=None, rng=None):
-        """One iteration at learning rate ``lr``. Returns the metrics as
+        """One iteration at learning rate ``lr`` on this rank's rows ``z``
+        (and ``noise``) of the global batch. Returns the metrics as
         detached device tensors: "cross_entropy", "acc@1", "acc@2" (the
         logits before the update against the distances), "gt_counts" and
-        "pred_counts" (each cluster's share of the batch), and "labels",
-        the assignments."""
+        "pred_counts" (each cluster's share of the batch), means over the
+        ranks, and "labels", this rank's assignments."""
         cfg = self.cfg
         batch = z.shape[0]
         with torch.no_grad():
@@ -70,16 +77,21 @@ class ClassifierTrainer:
         logits = self.classifier(resized[:batch])
         xent = F.cross_entropy(logits, labels)
         xent.backward()
+        all_reduce_grads(self.classifier)
         self.optim.step()
         logits = logits.detach()
         count = lambda x: torch.bincount(
             x, minlength=self.total_clusters).float() / batch
-        return {"cross_entropy": xent.detach(),
-                "acc@1": reverse_topk_accuracy(distances, logits, k=1),
-                "acc@2": reverse_topk_accuracy(distances, logits, k=2),
-                "gt_counts": count(labels),
-                "pred_counts": count(logits.argmax(dim=1)),
-                "labels": labels}
+        # the scalars and both counts in one tensor: one all-reduce a step
+        C = self.total_clusters
+        stacked = mean_over_ranks(torch.cat([
+            torch.stack([xent.detach(),
+                         reverse_topk_accuracy(distances, logits, k=1),
+                         reverse_topk_accuracy(distances, logits, k=2)]),
+            count(labels), count(logits.argmax(dim=1))]))
+        return {"cross_entropy": stacked[0], "acc@1": stacked[1],
+                "acc@2": stacked[2], "gt_counts": stacked[3:3 + C],
+                "pred_counts": stacked[3 + C:], "labels": labels}
 
 
 def train_cluster_classifier(trainer, iters, cls_lr=0.001, period=2500.0,
@@ -88,16 +100,23 @@ def train_cluster_classifier(trainer, iters, cls_lr=0.001, period=2500.0,
     """Iterations 1 .. ``iters``. The learning rate of iteration i is the
     one the reference's scheduler has left after i - 1 steps, with no psi
     annealing (train_cluster_classifier.py:106-107,148). Returns the last
-    step's metrics."""
+    step's metrics. Over ranks, ``trainer.cfg.batch`` is the global batch:
+    every rank draws its z and noise and keeps its rows, and a global
+    batch that the world size does not divide is refused (as the JAX
+    multi-process branch refuses it)."""
     cfg = trainer.cfg
+    if cfg.batch % world_size():
+        raise ValueError(f"global batch ({cfg.batch}) must be divisible by "
+                         f"the world size ({world_size()})")
+    K = cfg.t.num_heads
     device = next(trainer.classifier.parameters()).device
     metrics = None
     for i in range(1, iters + 1):
         lr = lr_used_at_iter(i, cls_lr, 0, period, t_mult=tm, decay=decay)
-        rng = iteration_rng(seed, i, device)
-        z = torch.randn(cfg.batch, cfg.g.style_dim, generator=rng,
-                        device=device)
-        metrics = trainer.step(z, lr, rng=rng)
+        z, noise = rank_rows(*draw_step_inputs(
+            trainer.generator, iteration_rng(seed, i, device), cfg.batch,
+            K), K)
+        metrics = trainer.step(z, lr, noise=noise)
         if i % log_every == 0 or i == 1:
             m = {k: float(metrics[k])
                  for k in ("cross_entropy", "acc@1", "acc@2")}

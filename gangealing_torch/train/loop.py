@@ -1,7 +1,7 @@
-"""The GANgealing training driver on one card.
+"""The GANgealing training loop, on one card or over ranks.
 
 Port of gangealing_tpu/train/loop.py (reference train.py:31-266) without the
-mesh and the k-step scan: per iteration the psi and the learning rates from
+k-step scan: per iteration the psi and the learning rates from
 train/annealing.py, z and the generator's noise from a generator seeded by
 the iteration, one train step, scalars into ``scalars.jsonl``, checkpoints
 every ``ckpt_every`` iterations and at every zero of the learning rate,
@@ -10,6 +10,12 @@ iterations, at iteration 100 and at every zero of the learning rate, and
 an optional ``torch.profiler`` window. The cold start fits the latent
 learner's PCA on a pool of W latents kept on the device, and with K heads
 its coefficients on K-Means++ centroids.
+
+Over ranks (parallel/mesh.py) every rank draws the global batch's z and
+both generator passes' noise from the iteration's generator and keeps its
+rows (``rank_rows``), so the ranks together step on what one process would
+draw; only the primary rank writes opt.txt, the scalars, the checkpoints,
+the visuals and the profiler trace.
 """
 
 import json
@@ -19,6 +25,7 @@ import time
 import torch
 
 from gangealing_torch.models.latent_learner import fit_pca, pca_encode
+from gangealing_torch.parallel.mesh import is_primary, shard_global_batch
 from gangealing_torch.train.checkpoint import save_checkpoint
 from gangealing_torch.train.clustering import kmeans_plusplus
 from gangealing_torch.train.state import TrainState, train_step
@@ -48,6 +55,33 @@ def vis_rng(seed, i, device):
     one that draws their fixed latents."""
     return torch.Generator(device).manual_seed(VIS_STREAM + (seed << 32)
                                                + i + 1)
+
+
+def draw_step_inputs(generator, rng, batch, heads):
+    """The global batch's z and the noise of both generator passes, drawn
+    from ``rng`` in the order the step's generator passes draw them: z,
+    then the noise of the pass at ``batch`` images, then that of the pass
+    at ``batch * heads``. Returns (z, (noise, noise))."""
+    dev = generator.input.input.device
+    z = torch.randn(batch, generator.cfg.style_dim, generator=rng,
+                    device=dev)
+    return z, (generator.make_noise(batch, rng),
+               generator.make_noise(batch * heads, rng))
+
+
+def rank_rows(z, noise, heads):
+    """This rank's rows of ``draw_step_inputs``: the block of z's rows
+    [r*N/W, (r+1)*N/W) (shard_global_batch), the same rows of the first
+    pass's noise, and of the second pass's the rows of those samples: the
+    latent learner lays its N*K targets out sample by sample, head k of
+    sample n at row n*K + k."""
+    n_u, n_a = noise
+
+    def by_sample(x):
+        x = x.reshape(-1, heads, *x.shape[1:])
+        return shard_global_batch(x).flatten(0, 1)
+    return shard_global_batch(z), ([shard_global_batch(x) for x in n_u],
+                                   [by_sample(x) for x in n_a])
 
 
 @torch.no_grad()
@@ -121,8 +155,12 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
     check_profile_window(profile_dir, profile_start, profile_stop,
                          start_iter, cfg.iter)
     device = next(state.t.parameters()).device
-    with open(os.path.join(results_path, "opt.txt"), "w") as f:
-        json.dump({k: str(v) for k, v in cfg.__dict__.items()}, f, indent=2)
+    primary = is_primary()
+    profile_dir = profile_dir if primary else None
+    if primary:
+        with open(os.path.join(results_path, "opt.txt"), "w") as f:
+            json.dump({k: str(v) for k, v in cfg.__dict__.items()}, f,
+                      indent=2)
     zero_lr = set(lr_cycle_iters(cfg.anneal_psi, cfg.period, cfg.iter, cfg.tm))
     early_vis = {100} | zero_lr
     K = cfg.t.num_heads
@@ -131,7 +169,7 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
                            generator=fixed, device=device)
     big_sample_z = torch.randn(n_mean, cfg.g.style_dim, generator=fixed,
                                device=device) if K > 1 else None
-    writer = GANgealingWriter(results_path)
+    writer = GANgealingWriter(results_path) if primary else None
 
     def vis(i, psi):
         kw = dict(padding_mode=cfg.padding_mode,
@@ -149,7 +187,7 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
     prof = trace_first = None
     t0 = time.time()
     try:
-        if vis_every > 0:
+        if vis_every > 0 and primary:
             vis(start_iter, 1.0 if cfg.anneal_psi > 0 else 0.0)
         for i in range(start_iter + 1, cfg.iter + 1):
             idx = i - start_iter - 1  # steps of this run before this one
@@ -162,27 +200,28 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
             lr_t, lr_ll = (lr_used_at_iter(i, lr, cfg.anneal_psi, cfg.period,
                                            cfg.tm, cfg.decay)
                            for lr in (cfg.stn_lr, cfg.ll_lr))
-            rng = iteration_rng(seed, i, device)
-            z = torch.randn(cfg.batch, cfg.g.style_dim, generator=rng,
-                            device=device)
+            z, noise = rank_rows(*draw_step_inputs(
+                generator, iteration_rng(seed, i, device), cfg.batch, K), K)
             metrics = train_step(state, generator, perceptual_fn, z, psi,
-                                 lr_t, lr_ll, rng=rng)
+                                 lr_t, lr_ll, noise=noise)
             if prof is not None and idx + 1 >= profile_stop:
                 stop_trace(prof, profile_dir)
                 prof = None
                 print(f"\n[profiler] trace of iterations {trace_first}.."
                       f"{i} written to {profile_dir}", flush=True)
-            if i % log_every == 0 or i in zero_lr:
+            if primary and (i % log_every == 0 or i in zero_lr):
                 m = _log(writer, i, metrics, psi, lr_t, lr_ll)
                 rate = (i - start_iter) * cfg.batch / max(time.time() - t0,
                                                           1e-9)
                 print(f"\r[{i}/{cfg.iter}] p={m['p']:.4f} tv={m['tv']:.6f} "
                       f"psi={psi:.4f} {rate:.1f} imgs/s", end="", flush=True)
-            if ckpt_every > 0 and (i % ckpt_every == 0 or i in zero_lr):
+            if primary and ckpt_every > 0 and (i % ckpt_every == 0
+                                               or i in zero_lr):
                 save_checkpoint(os.path.join(results_path, "checkpoints",
                                              f"{str(i).zfill(7)}.pt"),
                                 state, generator, i, args=args)
-            if vis_every > 0 and (i % vis_every == 0 or i in early_vis):
+            if primary and vis_every > 0 and (i % vis_every == 0
+                                              or i in early_vis):
                 vis(i, psi)
         if prof is not None:  # the window reached past the last iteration
             stop_trace(prof, profile_dir)
@@ -190,7 +229,9 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
             print(f"\n[profiler] trace of iterations {trace_first}.."
                   f"{cfg.iter} written to {profile_dir} (window extended "
                   "past the last iteration; captured what ran)", flush=True)
-        print()
+        if primary:
+            print()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

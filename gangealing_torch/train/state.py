@@ -8,6 +8,14 @@ the EMA of the STN. Learning rates are set on every step from the schedule
 Each Adam takes its module's parameters in ``learnable_key_order``, the
 order of the reference module's ``parameters()``, so that its state_dict
 is the reference checkpoint schema.
+
+Over ranks (parallel/mesh.py) each rank runs the step on its rows of the
+global batch; the gradients of the STN and the latent learner are averaged
+over the ranks by an explicit all-reduce between the backward and the Adam
+steps, so Adam and the EMA run alike on every rank. The step calls both
+modules several times (two generator passes, N*K streams through the STN
+when clustering), which DistributedDataParallel's one-forward-per-backward
+hooks do not expect.
 """
 
 import copy
@@ -24,6 +32,7 @@ from gangealing_torch.ops.flow import flow_identity_loss, total_variation_loss
 from gangealing_torch.train.losses import (
     gangealing_cluster_loss, gangealing_loss)
 from gangealing_torch.io.torch_import import learnable_key_order
+from gangealing_torch.parallel.mesh import all_reduce_grads, mean_over_ranks
 
 EMA_ACCUM = 0.5 ** (32 / (10 * 1000))  # train.py:77
 
@@ -33,7 +42,7 @@ class TrainConfig:
     g: GeneratorConfig
     t: ComposedSTNConfig
     ll: LatentLearnerConfig
-    batch: int = 40                  # the batch of the one card
+    batch: int = 40                  # the global batch, of all ranks
     stn_lr: float = 1e-3
     ll_lr: float = 1e-2
     tv_weight: float = 1000.0
@@ -91,7 +100,11 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     "assignments": each fake's head (and flip) index, whose residual flow
     alone the TV and flow-identity terms see. Both generator passes run in
     ``cfg.compute_dtype``; the perceptual trunk runs in the dtype
-    ``perceptual_fn`` was made with."""
+    ``perceptual_fn`` was made with.
+
+    ``z`` (and ``noise``) are this rank's rows of the global batch. Over
+    ranks the loss terms are their means over the ranks, as a step over
+    the global batch logs them; "assignments" are this rank's."""
     cfg = state.cfg
     set_lr(state.t_optim, lr_t)
     set_lr(state.ll_optim, lr_ll)
@@ -115,8 +128,11 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
         else zero
     total = ploss + cfg.tv_weight * tv + cfg.flow_identity_weight * fid
     total.backward()
+    all_reduce_grads(state.t, state.ll)
     state.t_optim.step()
     if not cfg.freeze_ll:
         state.ll_optim.step()
     state.ema_update()
-    return {"p": ploss.detach(), "tv": tv.detach(), "f": fid.detach(), **out}
+    terms = mean_over_ranks(torch.stack([ploss.detach(), tv.detach(),
+                                         fid.detach()]))
+    return {"p": terms[0], "tv": terms[1], "f": terms[2], **out}

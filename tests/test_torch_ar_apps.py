@@ -230,7 +230,7 @@ def test_cli_mixed_reality_refuses_later_slices(tmp_path, capsys):
     with pytest.raises(SystemExit):
         tcli.main(["--ckpt", "stn.pt", "--video_path", str(tmp_path),
                    "--num_devices", "2"])
-    assert "multi-GPU slice" in capsys.readouterr().err
+    assert "launch 2 ranks with torchrun" in capsys.readouterr().err
 
 
 def test_mixed_reality_refuses_clustering(params, model):

@@ -137,7 +137,7 @@ def test_eval_clis_refuse_later_slices_and_default_to_the_card(
         argv += ["--out", str(tmp_path / "o")]
     with pytest.raises(SystemExit):
         cli.main(argv + ["--num_devices", "2"])
-    assert "multi-GPU slice" in capsys.readouterr().err
+    assert "launch 2 ranks with torchrun" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # --num_heads: refused where the JAX CLI refuses it, for its reason;
     # not read by the others, which go on to the device

@@ -111,13 +111,17 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_nothing_of_jax():
-    """No line of the port's modules or of the card scripts (chip_smoke.py,
-    the variants scripts, chip_cars_batch.py, chip_serve_rates.py,
-    chip_bf16_noise.py) imports jax or the JAX package, at top level or
-    inside a function."""
+    """No line of the port's modules (the multi-process runtime
+    gangealing_torch/parallel among them) or of the card scripts
+    (chip_smoke.py, the variants scripts, chip_cars_batch.py,
+    chip_serve_rates.py, chip_bf16_noise.py, chip_dist_determinism.py)
+    imports jax or the JAX package, at top level or inside a
+    function."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gangealing_tpu)"
                          r"\b")
     files = sorted((REPO / "gangealing_torch").rglob("*.py"))
+    assert {"mesh.py", "launch.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
     chips = sorted(REPO.glob("chip_*.py"))
     assert len(chips) >= 6
     files += chips

@@ -276,3 +276,30 @@ def test_colormap_tables_are_matplotlibs():
             np.testing.assert_array_equal(
                 tvis.get_colors(n, scale).numpy(),
                 np.asarray(jvis.get_colors(n, scale)), f"{scale} {n}")
+
+
+def test_parallel_helpers_match_jax_at_one_process():
+    """The cross-process helpers keep the JAX package's names, and at one
+    process (world 1) give what JAX's give on the same inputs."""
+    from gangealing_torch.parallel import mesh as tmesh
+    jmesh = import_module("gangealing_tpu.parallel.mesh")
+    for name in ("process_stripe", "gather_process_stripes",
+                 "all_gather_hosts", "all_gatherv_hosts", "host_barrier",
+                 "shard_global_batch"):
+        assert callable(getattr(tmesh, name)) and \
+            callable(getattr(jmesh, name)), name
+    x = np.arange(12, dtype=np.float32).reshape(6, 2)
+    assert tmesh.process_stripe(7) == jmesh.process_stripe(7)
+    for n in (0, 4, 6):
+        # the port takes the stripe's results as a list of chunks
+        np.testing.assert_array_equal(
+            tmesh.gather_process_stripes([x[:4], x[4:]], n),
+            jmesh.gather_process_stripes(x, n))
+    np.testing.assert_array_equal(tmesh.all_gather_hosts(x),
+                                  jmesh.all_gather_hosts(x))
+    np.testing.assert_array_equal(tmesh.all_gatherv_hosts(x[:3]),
+                                  jmesh.all_gatherv_hosts(x[:3]))
+    assert tmesh.host_barrier() is None and jmesh.host_barrier() is None
+    np.testing.assert_array_equal(
+        tmesh.shard_global_batch(torch.from_numpy(x)).numpy(),
+        np.asarray(jmesh.shard_global_batch(jmesh.make_mesh(1), x)))

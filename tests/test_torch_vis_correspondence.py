@@ -340,7 +340,7 @@ def test_cli_vis_correspondence_refuses_later_slices_and_needs_a_card(
     with pytest.raises(SystemExit):
         tvc_cli.main(["--ckpt", ckpt, "--real_data_path", data,
                       "--num_devices", "2"])
-    assert "multi-GPU slice" in capsys.readouterr().err
+    assert "launch 2 ranks with torchrun" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tvc_cli.vis_correspondence_argparse().parse_args(
         ["--ckpt", ckpt]).device == "cuda"
