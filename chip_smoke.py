@@ -1,16 +1,18 @@
 """Smoke run of gangealing_torch on one CUDA card: build the kernels, hold
-them against their plain PyTorch versions, serve the flagship ComposedSTN
-congeal forward through them, train the flagship GANgealing configuration
-through them with its visuals and a profiler window, and run the AR
-object-lens app and the eval apps (PCK-Transfer, flow scores,
-congeal_dataset and their CLIs, on LMDB datasets) through them; then train
+them against their plain PyTorch versions (and K1 and K3 at tie points),
+serve the flagship ComposedSTN congeal forward through them, train the
+flagship GANgealing configuration through them with its visuals and a
+profiler window, and run the AR object-lens app and the eval apps
+(PCK-Transfer, flow scores, congeal_dataset and their CLIs, on LMDB
+datasets) through them; then train
 the LSUN-cars clustering configuration with its cluster visuals and its
 cluster classifier and run the AR apps with that classifier; then render
 the correspondence videos (vis_correspondence) and turn a video into an
 LMDB (process_video); then train both configurations and serve the
-flagship with --compute_dtype bfloat16; then run cli.train through
-torchrun at world 1 over NCCL and the steps and apps over two gloo ranks
-on the one card.
+flagship with --compute_dtype bfloat16; then train the synthetic
+full-system demo at one and two heads and a synthetic step at the
+flagship width; then run cli.train through torchrun at world 1 over NCCL
+and the steps and apps over two gloo ranks on the one card.
 
     python3 chip_smoke.py
 
@@ -19,6 +21,13 @@ Phases:
      card (nvidia-smi name and power limit) and torch version, switch TF32 off;
   2. each kernel against its plain version at the flagship shapes (N=8, C=3,
      256x256 source, 128x128 output) in the three padding modes, atol 1e-5;
+  2b. the K3 tie phase (k3_ties): K3 and K1 at every pair of tie
+     coordinates (texel centres and edges, the border clamp's ends, the
+     reflection padding's mirror lines and one texel past them) at each
+     tie level (0 to 3, 2.5, a float step either side of each integer),
+     over 64 and 256 px images in the three padding modes, held against
+     the plain version's autograd and the plain version (KERNEL_TOL
+     scaled), every case printed before the phase fails on any;
   3. the flagship ComposedSTN (similarity then flow, flow_size 128, 256px
      input, channel_multiplier 0.5, iters 1, border padding) with seeded
      random weights, saved in the reference checkpoint schema and loaded back
@@ -189,6 +198,26 @@ Phases:
      bfloat16 at batch 128: its two K1 launches held, its grids and
      flows against the float32 forward's (BF16_CONGEAL_TOL), imgs/s and
      its peak;
+  9b. the synthetic phase (chip_smoke.py::synthetic, train/synthetic.py):
+     run_synthetic_congealing at its published settings (64 px, batch
+     16, 150 iterations, seed 0) at one and two heads, each run twice: once
+     timed (seconds, iterations/s, peak memory, its launches counted: per
+     iteration K1 and K3 twice, K2 twice and K4 once a template) and held
+     to tests/test_full_system.py's thresholds (finite losses,
+     post-annealing descent, congealed-variance collapse), once with every
+     K1, K2, K3 and K4 launch held against its plain version on the inputs
+     it got; the STN the K=1 demo trained congealing the demo's eval
+     images on the card with and without cuDNN against the port's CPU path
+     (SYN_CONGEAL_TOL, SYN_GRID_TOL on the card without cuDNN, set from
+     CPU readings by chip_synthetic_gate.py); then a synthetic step at the
+     flagship STN's width (a 256 px template, flow_size 128,
+     sample_from_full_res, batch 32, the target resized to 128):
+     FLAG_SYN_WARM steps with every K1-K4 launch held, imgs/s over
+     FLAG_SYN_TIMED steps, the peak memory of a step, 2 steps' device time
+     by kernel group with the idle share; K5a, K5b and K6 launch nowhere in
+     the phase; K4 timed on its first launch of the K=1 demo and of the
+     flagship-width step beside its plain autograd, F.grid_sample's
+     backward and its bound;
  10. the distributed phase (chip_smoke.py::distributed, gangealing_torch/
      parallel): python -m torch.distributed.run --standalone
      --nproc_per_node 1 -m gangealing_torch.cli.train (NCCL at world 1)
@@ -215,13 +244,14 @@ Phases:
      stack as a volume for the mipmap kernels; torch.bmm of the separable
      weights for K6), each beside the card; K1's
      figures are those of a served batch-128 forward, per launch, K2's
-     those of an AR batch, K5a's and K5b's those of the train phase's
-     check (three kernels a call each), and the
-     N=8 ones a toy-size line apart; the kernels line, whose
+     those of an AR batch, K4's those of the flagship-width synthetic
+     step, K3's, K5a's and K5b's those of the train phase's check (K5a and
+     K5b three kernels a call each), and the N=8 ones a toy-size line
+     apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train, the AR apps, the
      eval apps, the cluster phase, the visualize phase, the precision
-     phase and the distributed phase's runs in this process and in its
-     ranks) and
+     phase, the synthetic phase and the distributed phase's runs in this
+     process and in its ranks) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -299,7 +329,15 @@ from gangealing_torch.train.clustering import kmeans_plusplus
 from gangealing_torch.train.losses import (
     assign_fake_images_to_clusters, gangealing_loss, resize_fake2stn,
     sample_gan_supervised_pairs)
-from gangealing_torch.train.state import TrainState, train_step
+from gangealing_torch.train.state import TrainConfig, TrainState, train_step
+from gangealing_torch.train import synthetic as synthetic_mod
+from gangealing_torch.train.annealing import psi_at_iter
+from gangealing_torch.train.synthetic import (
+    STYLE_DIM, l2_perceptual_fn, make_template, post_anneal_descent,
+    run_synthetic_congealing, synthetic_configs, synthetic_generator,
+    synthetic_latent_learner)
+from gangealing_torch.train.synthetic import eval_images as \
+    synthetic_eval_images
 from gangealing_torch.train import visuals as visuals_mod
 from gangealing_torch.train.visuals import (
     GANgealingWriter, animate_visuals, create_training_visuals)
@@ -392,9 +430,10 @@ SKEWED = {"zoom-in": 0.25, "border pile": 2.0}
 # K2 in every PCK batch, K6 in cli.propagate_to_images, K1 in every
 # classifier step, and in cli.vis_correspondence's track K1 in every frame
 # of a stage, K2 once and K6 in the flip's splat and each chunk of
-# splat_batch frames.
+# splat_batch frames; K2 and K4 in every synthetic step (the synthetic
+# generator's warps and the target's d/dgrid), with K1 and K3.
 MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords",
-                     "splat")
+                     "grid_sample_dgrid", "splat")
 
 
 def check(cond, msg):
@@ -4826,12 +4865,420 @@ def dist_held(dev, card, d, cases, ranks):
     return time.perf_counter() - t0
 
 
+# The K3 tie phase (chip_smoke.py::k3_ties): points where K3's tie rules
+# and the autograd of its plain version could part. Coordinates, in source
+# pixels (align_corners=False), on texel centres, texel edges, the border
+# clamp's ends, the reflection padding's mirror lines (-0.5 and size - 0.5)
+# and one texel past them; levels on each of the pyramid's TIE_LEVELS
+# integers (the last is its top), on the warp's top (2.5, where
+# mipmap_levels clips) and a float step either side of each integer; every
+# pair of coordinates at every level, in the three padding modes, over
+# images of TIE_SIZES px. Each grid value is exact in float32, so the
+# kernels unnormalise it to the coordinate itself.
+TIE_SIZES = (64, 256)
+TIE_LEVELS = 4
+
+
+def tie_coords(size):
+    return [0.0, 1.0, size / 2, size - 2.0, size - 1.0,
+            0.5, size / 2 - 0.5, size - 1.5,
+            -0.5, size - 0.5,
+            -1.0, float(size), -1.5, size + 0.5]
+
+
+def tie_levels():
+    whole = torch.arange(TIE_LEVELS, dtype=torch.float32)
+    return torch.cat([
+        whole, torch.tensor([2.5]),
+        torch.nextafter(whole[1:], torch.zeros(TIE_LEVELS - 1)),
+        torch.nextafter(whole[:-1], torch.full((TIE_LEVELS - 1,),
+                                                float("inf")))])
+
+
+def tie_inputs(size, N=2, C=3, seed=0):
+    """An image (N, C, size, size), the grid (N, L*P, P, 2) of every pair
+    of the P tie coordinates at each of the L tie levels, those levels
+    (N, L*P, P) and a cotangent (N, C, L*P, P), on the CPU."""
+    c = torch.tensor(tie_coords(size), dtype=torch.float64)
+    g = ((2 * c + 1) / size - 1).float()
+    check(torch.equal(((g.double() + 1) * size - 1) * 0.5, c),
+          f"a tie coordinate is not exact in float32 at {size} px")
+    lv = tie_levels()
+    P, L = len(c), len(lv)
+    gy, gx = torch.meshgrid(g, g, indexing="ij")
+    grid = torch.stack([gx, gy], -1).repeat(L, 1, 1)
+    levels = lv.repeat_interleave(P)[:, None].expand(L * P, P)
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.randn(N, C, size, size, generator=gen)
+    dout = torch.randn(N, C, L * P, P, generator=gen)
+    return (img, grid.expand(N, -1, -1, -1).contiguous(),
+            levels.expand(N, -1, -1).contiguous(), dout)
+
+
+def k3_ties(dev):
+    """K3, and K1, at the tie points against the plain version's autograd
+    and the plain version (hold, KERNEL_TOL). Every case is held and
+    printed before the phase fails on any."""
+    errs, failed = {}, []
+    for size in TIE_SIZES:
+        img, grid, levels, dout = (t.to(dev) for t in tie_inputs(size))
+        pyramid = _build_pyramid(img, TIE_LEVELS)
+        for pm in PADDINGS:
+            read = []
+            k1 = mipmap_sample(pyramid, grid, levels, pm)
+            args = (pyramid, grid, levels, dout, pm)
+            calls = [(args, mipmap_ops.mipmap_sample_dcoords(*args))]
+            with torch.no_grad():
+                ref = _sample_pyramid(pyramid, grid, levels, pm)
+            for name, pairs, where in (
+                    ("mipmap_sample", [(k1, ref)], None),
+                    ("mipmap_sample_dcoords",
+                     backward_pairs(calls, k3_graph), k3_where(calls))):
+                worst = [max(scaled_err(o, r)[i] for o, r in pairs)
+                         for i in range(2)]
+                read.append(f"{name} {worst[0]:.3e} ({worst[1]:.3e} "
+                            f"scaled)")
+                errs[name] = max(errs.get(name, 0.0), worst[0])
+                try:
+                    hold(name, pairs, {}, where)
+                except AssertionError as e:
+                    failed.append(f"{size} px, {pm}: {e}")
+            print(f"K1 and K3 at {grid.shape[1] * grid.shape[2]} tie points "
+                  f"of a {size} px image, {pm} padding, max abs err: "
+                  + ", ".join(read))
+    check(not failed, "at the tie points: " + "; ".join(failed))
+    return errs
+
+
+# The synthetic phase (chip_smoke.py::synthetic, train/synthetic.py): the
+# JAX package's full-system demo at its published settings
+# (benchmarks/full_system_demo.py:28: 64 px, batch 16, SYN_ITERS
+# iterations, seed 0) at one and two heads, each held to
+# tests/test_full_system.py's thresholds (post-annealing descent and
+# congealed-variance collapse); then a synthetic step at the flagship STN's
+# width, the shapes benchmarks/tpu_numerics.py trains at (:63-65, 98-130):
+# a 256 px template, flow_size 128, channel_multiplier 0.5,
+# sample_from_full_res, batch 32, the target resized to 128.
+SYN_ITERS, SYN_SIZE, SYN_BATCH = 150, 64, 16
+SYN_THRESHOLDS = {1: (0.75, 0.6), 2: (0.85, 0.8)}  # descent, collapse
+FLAG_SYN_BATCH, FLAG_SYN_WARM, FLAG_SYN_TIMED = 32, 3, 20
+SYN_KERNELS = ("mipmap_sample", "mipmap_sample_dcoords", "grid_sample",
+               "grid_sample_dgrid")
+# The card against the CPU path on the demo's 32 eval images congealed by
+# the STN the K=1 demo trained on the card: the largest differences of the
+# congealed images and of their grids. Set from CPU readings alone before
+# any card reading (python3 chip_synthetic_gate.py: ten times the largest
+# difference of the CPU path's float32 run from its float64 and its
+# oneDNN-off runs, on an STN the same demo trained on the CPU). Held with
+# cuDNN off on the card (native convolutions); cuDNN's reading is printed.
+# The readings: float64 5.513e-06 (grids 6.228e-07), oneDNN off 1.451e-05
+# (1.907e-06); the gates ten times the larger, rounded up.
+SYN_CONGEAL_TOL, SYN_GRID_TOL = 2e-4, 2e-5
+SYN_GROUPS = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
+              ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
+              ("K4 grid-sample d/dgrid", ("grid_sample_dgrid_kernel",)),
+              ("K2 grid_sample", ("grid_sample_kernel",)),
+              CONV_GROUP,
+              ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
+              ("reductions", ("reduce",)),
+              ("gather, scatter and index", ("gather", "scatter", "index")))
+
+
+@contextlib.contextmanager
+def holding(errs, first, counts):
+    """Record every K1, K2, K3 and K4 launch made inside the block. The
+    ``flush()`` it yields holds the launches recorded so far against their
+    plain versions on the inputs they got (hold, KERNEL_TOL), counts them
+    in ``counts``, keeps each kernel's first in ``first`` and drops the
+    rest; the block's end flushes too."""
+    def plain_k1(calls):
+        with torch.no_grad():
+            return [(out.detach(), _sample_pyramid(*a)) for a, out in calls]
+
+    def plain_k2(calls):
+        with torch.no_grad():
+            return [(out.detach(), grid_sample(a[0], a[1], padding_mode=a[2]))
+                    for a, out in calls]
+
+    plain = {"mipmap_sample": (plain_k1, None),
+             "grid_sample": (plain_k2, None),
+             "mipmap_sample_dcoords": (
+                 lambda calls: backward_pairs(calls, k3_graph), k3_where),
+             "grid_sample_dgrid": (
+                 lambda calls: backward_pairs(calls, k4_graph), None)}
+    entries = {"mipmap_sample": (mipmap_ops, "mipmap_sample"),
+               "mipmap_sample_dcoords": (mipmap_ops, "mipmap_sample_dcoords"),
+               "grid_sample": (grid_sample_ops, "grid_sample_cuda"),
+               "grid_sample_dgrid": (grid_sample_ops, "grid_sample_dgrid")}
+    with contextlib.ExitStack() as stack:
+        lists = {name: stack.enter_context(recorded(*entry))
+                 for name, entry in entries.items()}
+
+        def flush():
+            for name, calls in lists.items():
+                if calls:
+                    first.setdefault(name, calls[0])
+                    counts[name] = counts.get(name, 0) + len(calls)
+                    pairs_of, where = plain[name]
+                    hold(name, pairs_of(calls), errs,
+                         where(calls) if where else None)
+                    calls.clear()
+        yield flush
+        flush()
+
+
+@contextlib.contextmanager
+def flushed_steps(flush):
+    """``train_step`` of train/synthetic.py flushing ``holding`` after
+    each step, so that no step's recorded tensors outlive the next."""
+    fn = synthetic_mod.train_step
+
+    def step(*args, **kw):
+        out = fn(*args, **kw)
+        flush()
+        return out
+
+    synthetic_mod.train_step = step
+    try:
+        yield
+    finally:
+        synthetic_mod.train_step = fn
+
+
+def demo_launches(heads):
+    """The launches of one demo run: per iteration K1 and K3 twice, K2
+    twice and K4 once a template; K2 once a template for the eval images
+    and K1 twice in each of the two variance forwards."""
+    return {"mipmap_sample": 2 * SYN_ITERS + 4,
+            "mipmap_sample_dcoords": 2 * SYN_ITERS,
+            "grid_sample": heads * (2 * SYN_ITERS + 1),
+            "grid_sample_dgrid": heads * SYN_ITERS}
+
+
+def check_no_image_grads(what):
+    """K5a, K5b and K6 did not launch: the templates, the drawn z and the
+    source images need no gradient, and nothing splats."""
+    others = {k: LAUNCHES[k] for k in LAUNCHES if k not in SYN_KERNELS}
+    check(not any(others.values()), f"{what} launched {others}")
+
+
+def synthetic_demo(dev, card, heads, errs, first):
+    """The demo at ``heads`` heads, twice from seed 0: once timed, its
+    launches counted, and once with every K1-K4 launch held. Returns the
+    timed run's result and launches, its seconds and peak GiB."""
+    kw = dict(iters=SYN_ITERS, size=SYN_SIZE, batch=SYN_BATCH,
+              num_heads=heads, seed=0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    r = run_synthetic_congealing(**kw)
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_no_image_grads(f"the K={heads} demo")
+    expected = demo_launches(heads)
+    check(all(launches[k] == v for k, v in expected.items()),
+          f"the K={heads} demo launched {launches}, expected {expected}")
+    descent, collapse = SYN_THRESHOLDS[heads]
+    early, late = post_anneal_descent(r.losses, max(1, int(SYN_ITERS * 0.3)))
+    print(f"synthetic demo K={heads}: {SYN_ITERS} iterations at batch "
+          f"{SYN_BATCH}, {SYN_SIZE} px in {seconds:.2f} s "
+          f"({SYN_ITERS / seconds:.1f} iterations/s), peak "
+          f"{peak:.3f} GiB; post-annealing loss {early:.5f} -> {late:.5f} "
+          f"({late / early:.3f}x, gate {descent}), congealed variance "
+          f"{r.var_before:.5f} -> {r.var_after:.5f} "
+          f"({r.var_after / r.var_before:.3f}x, gate {collapse}) [{card}]")
+    check(bool(np.all(np.isfinite(r.losses))), f"K={heads}: a loss is not "
+          "finite")
+    check(late < descent * early, f"K={heads}: no post-annealing descent")
+    check(r.var_after < collapse * r.var_before,
+          f"K={heads}: the congealed variance did not collapse")
+    counts, held = {}, {}
+    zero_launches()
+    with holding(held, first, counts) as flush, flushed_steps(flush):
+        again = run_synthetic_congealing(**kw)
+    check_no_image_grads(f"the held K={heads} demo")
+    check(counts == expected and all(LAUNCHES[k] == v
+                                     for k, v in expected.items()),
+          f"the held K={heads} demo launched {counts}")
+    check(bool(np.all(np.isfinite(again.losses))), f"K={heads}: a loss of "
+          "the held run is not finite")
+    for k, v in held.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    print(f"synthetic demo K={heads}, every launch of a second run held "
+          f"against its plain version: " + ", ".join(
+              f"{k} {counts[k]} launches, max abs err {held[k]:.3e}"
+              for k in SYN_KERNELS))
+    return r, {k: launches[k] + LAUNCHES[k] for k in LAUNCHES}, seconds, peak
+
+
+def synthetic_card_vs_cpu(t, heads, card):
+    """The demo's 32 eval images congealed by the trained STN ``t`` on the
+    card, with and without cuDNN, against the port's CPU path, and the CPU
+    path's float32 against its float64; the card without cuDNN is gated."""
+    dev = next(t.parameters()).device
+    templates = [make_template(SYN_SIZE, m, dev) for m in range(heads)]
+    imgs = synthetic_eval_images(templates, 32, SYN_SIZE, 0, dev)
+    cpu = copy.deepcopy(t).cpu()
+    runs = {}
+    for name, m, cudnn, dtype in (
+            ("card", t, True, torch.float32),
+            ("card, no cuDNN", t, False, torch.float32),
+            ("cpu", cpu, True, torch.float32),
+            ("cpu float64", copy.deepcopy(cpu).double(), True,
+             torch.float64)):
+        torch.backends.cudnn.enabled = cudnn
+        with torch.no_grad():
+            out, grid = m(imgs.to(next(m.parameters()).device, dtype),
+                          padding_mode="border")[:2]
+        torch.backends.cudnn.enabled = True
+        runs[name] = (out.cpu().double(), grid.cpu().double())
+    far = {k: [float((runs[k][i] - runs["cpu"][i]).abs().max())
+               for i in range(2)] for k in runs if k != "cpu"}
+    print(f"card vs CPU path, the trained K={heads} demo STN congealing its "
+          f"32 eval images: " + "; ".join(
+              f"{k} {v[0]:.3e} (grids {v[1]:.3e})" for k, v in far.items())
+          + f" from the CPU path's float32; gates {SYN_CONGEAL_TOL} "
+          f"({SYN_GRID_TOL}) on the card without cuDNN [{card}]")
+    check(far["card, no cuDNN"][0] <= SYN_CONGEAL_TOL
+          and far["card, no cuDNN"][1] <= SYN_GRID_TOL,
+          "the trained synthetic STN congeals apart from the CPU path")
+
+
+def flagship_synthetic_state(dev):
+    """A TrainState of the flagship STN on the synthetic generator at
+    256 px, and its sampler: G_syn at 256 px both ways, the target resized
+    to flow_size (tpu_numerics.py's stage_train)."""
+    template = make_template(256, 0, dev)
+    _, ll_cfg = synthetic_configs(256, 1)
+    cfg = TrainConfig(g=None, t=FLAGSHIP, ll=ll_cfg, batch=FLAG_SYN_BATCH,
+                      stn_lr=1e-3, ll_lr=5e-3, tv_weight=100.0,
+                      anneal_psi=360, padding_mode="border",
+                      sample_from_full_res=True)
+    t = ComposedSTN(FLAGSHIP, device=dev,
+                    generator=torch.Generator().manual_seed(1))
+    ll = synthetic_latent_learner(ll_cfg, dev,
+                                  torch.Generator().manual_seed(2))
+
+    def sampler(ll, z, psi):
+        unaligned = synthetic_generator([template], z, 256)
+        target = synthetic_generator([template], ll(z, psi)[:, 0], 256)
+        return unaligned, resize_fake2stn(target, 256, FLAGSHIP.flow_size)
+    return TrainState(cfg, t, ll), sampler
+
+
+def flagship_synthetic(dev, card, errs, first):
+    """FLAG_SYN_WARM steps with every K1-K4 launch held, a timed window of
+    FLAG_SYN_TIMED steps in SUBWINDOWS parts, a step's peak memory and 2
+    profiled steps by kernel group; K1, K3 and K2 twice a step, K4 once.
+    Returns the launches and the rate."""
+    state, sampler = flagship_synthetic_state(dev)
+    rng = torch.Generator(dev).manual_seed(9)
+    it = [0]
+
+    def step():
+        it[0] += 1
+        z = torch.randn(FLAG_SYN_BATCH, STYLE_DIM, generator=rng, device=dev)
+        psi = psi_at_iter(it[0], state.cfg.anneal_psi)
+        return train_step(state, None, l2_perceptual_fn, z, psi, 1e-3, 5e-3,
+                          pair_sampler=sampler)
+
+    def finite(m):
+        check(all(math.isfinite(float(v)) for v in m.values()),
+              f"a flagship-width synthetic step is not finite: {m}")
+
+    zero_launches()
+    counts, held = {}, {}
+    with holding(held, first, counts) as flush:
+        for _ in range(FLAG_SYN_WARM):
+            finite(step())
+            flush()
+    per_step = {"mipmap_sample": 2, "mipmap_sample_dcoords": 2,
+                "grid_sample": 2, "grid_sample_dgrid": 1}
+    check(counts == {k: FLAG_SYN_WARM * v for k, v in per_step.items()},
+          f"{FLAG_SYN_WARM} flagship-width synthetic steps launched {counts}")
+    for k, v in held.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    finite(step())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    part = FLAG_SYN_TIMED // SUBWINDOWS
+    ms = timed_parts(lambda w: [step() for _ in range(part)], finite)
+    rate = FLAG_SYN_BATCH * FLAG_SYN_TIMED / (sum(ms) / 1e3)
+    prof = profiled(lambda: [step() for _ in range(2)])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check_no_image_grads("the flagship-width synthetic steps")
+    check(all(launches[k] == v * it[0] for k, v in per_step.items()),
+          f"{it[0]} flagship-width synthetic steps launched {launches}")
+    print(f"synthetic step at the flagship width (256 px template, "
+          f"flow_size 128, sample_from_full_res, batch {FLAG_SYN_BATCH}): "
+          f"{rate:.1f} imgs/s over {FLAG_SYN_TIMED} steps in "
+          f"{sum(ms) / 1e3:.2f} s (in {SUBWINDOWS} parts: "
+          f"{', '.join(f'{FLAG_SYN_BATCH * part / (t / 1e3):.1f}' for t in ms)}"
+          f"), peak memory of a step {peak:.2f} GiB; the {FLAG_SYN_WARM} "
+          f"warm steps' launches held: " + ", ".join(
+              f"{k} {counts[k]}, max abs err {held[k]:.3e}"
+              for k in SYN_KERNELS) + f" [{card}]")
+    print_groups(f"step at the flagship width, batch {FLAG_SYN_BATCH}, 2 "
+                 f"steps", 2, *kernel_groups(prof, SYN_GROUPS), card, top=6)
+    return launches, rate, peak
+
+
+def synthetic(dev, card):
+    """The synthetic phase: both demos, the trained STN on the card against
+    the CPU, the flagship-width step, and K4 timed at both new shapes.
+    Returns the main path's launches, the errors and K4's figures at the
+    flagship width."""
+    start = time.perf_counter()
+    errs, launches, rates = {}, {k: 0 for k in LAUNCHES}, {}
+    k4_first = {}
+    for heads in (1, 2):
+        first = {}
+        r, demo_counts, seconds, peak = synthetic_demo(dev, card, heads,
+                                                       errs, first)
+        rates[heads] = (seconds, SYN_ITERS / seconds, peak)
+        launches = {k: launches[k] + demo_counts[k] for k in LAUNCHES}
+        if heads == 1:
+            synthetic_card_vs_cpu(r.state.t, heads, card)
+            k4_first[f"N={SYN_BATCH} at {SYN_SIZE} px"] = \
+                first["grid_sample_dgrid"]
+        del r
+    first = {}
+    flag_launches, flag_rate, flag_peak = flagship_synthetic(dev, card, errs,
+                                                             first)
+    launches = {k: launches[k] + flag_launches[k] for k in LAUNCHES}
+    k4_first[f"N={FLAG_SYN_BATCH} at 256 px"] = first["grid_sample_dgrid"]
+    k4 = {}
+    for what, call in k4_first.items():
+        args = call[0]
+        k4[what] = backward_times([call], k4_graph,
+                                  grid_sample_ops.grid_sample_dgrid)
+        ms_k, ms_p, b_ms, b_by, lib_ms = k4[what]
+        print(f"grid_sample_dgrid (K4) on the synthetic generator's target "
+              f"grid, {what}, inputs {tuple(args[0].shape)} "
+              f"{tuple(args[1].shape)}, device time: kernel {ms_k:.4f} ms, "
+              f"plain autograd {ms_p:.4f} ms, backward of F.grid_sample "
+              f"(border) to the grid {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}) [{card}]")
+    print(f"synthetic phase: {time.perf_counter() - start:.1f} s; demos "
+          + "; ".join(f"K={h} {s:.2f} s, {ips:.1f} iterations/s, peak "
+                      f"{p:.3f} GiB" for h, (s, ips, p) in rates.items())
+          + f"; flagship-width step {flag_rate:.1f} imgs/s, peak "
+          f"{flag_peak:.2f} GiB; launches {launches} [{card}]")
+    return launches, errs, k4[f"N={FLAG_SYN_BATCH} at 256 px"]
+
+
 def main():
     start = time.perf_counter()
     dev, card = setup()
     reals_dir = tempfile.mkdtemp()
     reals = real_lmdb(os.path.join(reals_dir, "reals"))
     errs, times, bounds, library = kernels_vs_plain(dev)
+    tie_errs = k3_ties(dev)
     rates, peak_gib, launches, path_err, k1_path = serve(dev, card)
     errs = {k: max(errs[k], path_err[k]) for k in errs}
     train_rate, train_peak, train_launches, check_launches, train_errs, \
@@ -4848,12 +5295,14 @@ def main():
     bf16_launches, bf16_errs, bf16_rates = precision(
         dev, card, (train_rate, train_peak, cars_rate, cars_peak,
                     rates[128][0]))
+    syn_launches, syn_errs, k4_synthetic = synthetic(dev, card)
     dist_launches = distributed(dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
                  + list(eval_errs.items()) + list(cluster_errs.items())
-                 + list(vis_errs.items()) + list(bf16_errs.items())):
+                 + list(vis_errs.items()) + list(bf16_errs.items())
+                 + list(tie_errs.items()) + list(syn_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -4900,24 +5349,27 @@ def main():
     measured["mipmap_sample"] = k1_path
     measured.update(train_times)
     measured["splat"] = splat_times
-    # K2 on the inputs of an AR batch, where most of its main-path
-    # launches are
+    # K2 on the inputs of an AR batch; K4 on the target grid of a
+    # flagship-width synthetic step, the main path's largest K4
     measured["grid_sample"] = k2_ar
+    measured["grid_sample_dgrid"] = k4_synthetic
     # "launches" counts the main path only: serve, cli.train (with its
     # visuals), the AR apps, the eval apps, the cluster phase's cars run
     # (with its visuals), classifier CLI and AR apps, the visualize
     # phase's vis_correspondence CLI runs, and the precision phase's
-    # bfloat16 cli.train runs and congeal forwards, and the distributed
-    # phase's cli.train run without torchrun and its two gloo ranks' steps
-    # and apps (each rank's counts read in that rank), each run with every
-    # count zeroed just before it.
-    # The backward kernels of the antialias=False form and of an image that
-    # needs a gradient run only in the side checks, which count under
-    # "check_launches" with the K6 launches of composed_propagate_object's
-    # check.
+    # bfloat16 cli.train runs and congeal forwards, the synthetic phase's
+    # demos and flagship-width steps, and the distributed phase's cli.train
+    # run without torchrun and its two gloo ranks' steps and apps (each
+    # rank's counts read in that rank), each run with every count zeroed
+    # just before it.
+    # The backward kernels of an image that needs a gradient (K5a, K5b)
+    # run only in the side checks, which count under "check_launches" with
+    # the K2 and K4 launches of the antialias=False step and the K6
+    # launches of composed_propagate_object's check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
                 + eval_launches[k] + cluster_launches[k] + vis_launches[k]
-                + bf16_launches[k] + dist_launches[k] for k in LAUNCHES}
+                + bf16_launches[k] + syn_launches[k] + dist_launches[k]
+                for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):

@@ -57,12 +57,13 @@ def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
 
     ``perceptual_fn(x, y)`` -> (N, 1, 1, 1). ``pair_sampler``: an optional
     replacement for the GAN pair source, mapping (ll, z, psi) to
-    (unaligned, target at flow_size)."""
+    (unaligned, target at flow_size); ``generator`` may then be None. The
+    unaligned fakes are resized to flow_size from their own size (the
+    generator's, the JAX package's ``g_cfg.size``)."""
     unaligned, target = _pairs(generator, stn, ll, z, psi, freeze_ll, noise,
                                rng, pair_sampler, compute_dtype)
     flow_size = stn.cfg.flow_size
-    gen_size = generator.cfg.size if generator is not None else flow_size
-    resized = resize_fake2stn(unaligned, gen_size, flow_size)
+    resized = resize_fake2stn(unaligned, unaligned.shape[-1], flow_size)
     pred, _, delta_flow, _, _ = stn(
         resized, padding_mode=padding_mode,
         input_img_for_sampling=unaligned if sample_from_full_res else None,
@@ -93,8 +94,7 @@ def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
         unaligned = torch.cat([unaligned, unaligned.flip(3)], 0)
         target = target.repeat(2, 1, 1, 1)
     flow_size = stn.cfg.flow_size
-    gen_size = generator.cfg.size if generator is not None else flow_size
-    resized = resize_fake2stn(unaligned, gen_size, flow_size)
+    resized = resize_fake2stn(unaligned, unaligned.shape[-1], flow_size)
     pred, _, delta_flow, _, _ = stn(
         resized, padding_mode=padding_mode,
         input_img_for_sampling=unaligned if sample_from_full_res else None,

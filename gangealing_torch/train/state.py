@@ -92,9 +92,12 @@ def set_lr(optim, lr):
 
 
 def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
-               lr_ll, noise=None, rng=None):
+               lr_ll, noise=None, rng=None, pair_sampler=None):
     """One GANgealing iteration. ``perceptual_fn(x, y)`` -> (N, 1, 1, 1);
-    the generator is frozen. Returns the loss terms {"p", "tv", "f"} as
+    the generator is frozen. ``pair_sampler(ll, z, psi)`` -> (unaligned,
+    target at flow_size) replaces the GAN pair source (the JAX package's
+    ``make_train_step(..., pair_sampler=)``); ``generator`` and ``cfg.g``
+    may then be None. Returns the loss terms {"p", "tv", "f"} as
     detached device scalars (reading them synchronises) and, for a
     clustering model (``num_heads > 1`` or ``flips``, loss.py:78-92),
     "assignments": each fake's head (and flip) index, whose residual flow
@@ -113,7 +116,8 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     kw = dict(freeze_ll=cfg.freeze_ll,
               sample_from_full_res=cfg.sample_from_full_res,
               padding_mode=cfg.padding_mode, noise=noise, rng=rng,
-              compute_dtype=dtype_of(cfg.compute_dtype))
+              compute_dtype=dtype_of(cfg.compute_dtype),
+              pair_sampler=pair_sampler)
     out = {}
     if cfg.t.num_heads > 1 or cfg.flips:
         ploss, delta_flow, out["assignments"] = gangealing_cluster_loss(
