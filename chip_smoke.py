@@ -11,8 +11,10 @@ the correspondence videos (vis_correspondence) and turn a video into an
 LMDB (process_video); then train both configurations and serve the
 flagship with --compute_dtype bfloat16; then train the synthetic
 full-system demo at one and two heads and a synthetic step at the
-flagship width; then run cli.train through torchrun at world 1 over NCCL
-and the steps and apps over two gloo ranks on the one card.
+flagship width; then train both recipes at batch 5 in blocks of 8 steps
+(--scan_k) and in single steps; then run cli.train through torchrun at
+world 1 over NCCL and the steps and apps over two gloo ranks on the one
+card.
 
     python3 chip_smoke.py
 
@@ -218,6 +220,20 @@ Phases:
      the phase; K4 timed on its first launch of the K=1 demo and of the
      flagship-width step beside its plain autograd, F.grid_sample's
      backward and its bound;
+  9c. the scan phase (chip_smoke.py::scan, train/loop.py's blocks):
+     python -m gangealing_torch.cli.train on the cats flags and on the
+     cars flags at SCAN_BATCH (5, the reference's per-GPU batch), each
+     from one state saved after the cold start and one step: SCAN_ITERS
+     iterations with --scan_k 0 (which must pick blocks of SCAN_K, 8) and
+     with --scan_k 1, under torch's deterministic algorithms, the final
+     states (parameters, EMA, Adam moments) and the logged scalars equal
+     to the bit, every K1 and K3 launch of the cars runs held against its
+     plain version; the cats runs again with torch's default algorithms;
+     each run's blocks, launches (K1 and K3 twice a step), checkpoint at
+     the end and scalars checked, its imgs/s over its last SCAN_K
+     iterations by the host clock, its peak memory, and a profiler
+     window over its first block with the device's busy time and idle
+     share;
  10. the distributed phase (chip_smoke.py::distributed, gangealing_torch/
      parallel): python -m torch.distributed.run --standalone
      --nproc_per_node 1 -m gangealing_torch.cli.train (NCCL at world 1)
@@ -250,8 +266,8 @@ Phases:
      apart; the kernels line, whose
      "launches" are the main path's (serve, cli.train, the AR apps, the
      eval apps, the cluster phase, the visualize phase, the precision
-     phase, the synthetic phase and the distributed phase's runs in this
-     process and in its ranks) and
+     phase, the synthetic phase, the scan phase and the distributed
+     phase's runs in this process and in its ranks) and
      whose "check_launches" are the side checks' (the antialias=False step,
      the forward whose input needs a gradient and the
      composed_propagate_object check).
@@ -5272,6 +5288,247 @@ def synthetic(dev, card):
     return launches, errs, k4[f"N={FLAG_SYN_BATCH} at 256 px"]
 
 
+# The scan phase: blocks of steps (--scan_k) at the reference's per-GPU
+# batch of 5, one rank of its 8-card recipes, where the JAX CLI's
+# --scan_k 0 picks blocks of 8. Each run resumes from one saved state,
+# runs SCAN_ITERS iterations, traces its first SCAN_K (one block) and is
+# timed over the rest. The run that saves the state warms the process
+# up: its step runs under torch's deterministic algorithms and a
+# profiler window, as the held runs do.
+SCAN_BATCH = 5
+SCAN_K = 8
+SCAN_ITERS = 16
+
+
+def scan_argv(argv, name, k, trace_dir):
+    """``argv`` resumed (no --load_G_only) for SCAN_ITERS iterations at
+    SCAN_BATCH with ``--scan_k k``, one checkpoint at the end and the
+    profiler over the first SCAN_K of them."""
+    return [a for a in argv if a != "--load_G_only"] + [
+        "--exp-name", name, "--batch", str(SCAN_BATCH), "--scan_k", str(k),
+        "--iter", str(SCAN_ITERS + 1), "--ckpt_every", str(SCAN_ITERS + 1),
+        "--vis_every", "0", "--log_every", "1", "--profile_dir", trace_dir,
+        "--profile_start", "0", "--profile_stop", str(SCAN_K)]
+
+
+@contextlib.contextmanager
+def scan_clock(flush):
+    """Time cli.train's iterations SCAN_K + 2 .. SCAN_ITERS + 1 of a run
+    resumed at 1: from the draw of the first (``iteration_rng``) to the
+    checkpoint of the last, after its scalars are logged; ``flush()``
+    runs just before the clock starts. Records the sizes of the blocks
+    the loop ran."""
+    rng_fn, block_fn, save_fn = (train_loop.iteration_rng,
+                                 train_loop.train_block,
+                                 train_loop.save_checkpoint)
+    clock = {"blocks": []}
+
+    def rng(seed, i, device):
+        if i == SCAN_K + 2:
+            flush()
+            torch.cuda.synchronize()
+            clock["start"] = time.perf_counter()
+        return rng_fn(seed, i, device)
+
+    def block(*args, **kw):
+        clock["blocks"].append(len(args[3]))
+        return block_fn(*args, **kw)
+
+    def save(path, state, generator, i, **kw):
+        clock["seconds"] = time.perf_counter() - clock["start"]
+        return save_fn(path, state, generator, i, **kw)
+
+    train_loop.iteration_rng, train_loop.train_block, \
+        train_loop.save_checkpoint = rng, block, save
+    try:
+        yield clock
+    finally:
+        train_loop.iteration_rng, train_loop.train_block, \
+            train_loop.save_checkpoint = rng_fn, block_fn, save_fn
+
+
+def trace_busy(trace_dir):
+    """The device's busy time and the span from its first kernel's start
+    to its last one's end (ms) in the one Chrome trace in ``trace_dir``:
+    kernels, copies and fills, their overlaps counted once; and the
+    kernels' time (ms) by STEP_GROUPS' group."""
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"the profiler window wrote {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(events, "the profiler window saw no device activity")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    groups = {}
+    for e in events:
+        name = e["name"].lower()
+        group = next((g for g, keys in STEP_GROUPS
+                      if any(k in name for k in keys)),
+                     "elementwise and other")
+        groups[group] = groups.get(group, 0.0) + e["dur"] / 1e3
+    return busy / 1e3, (end - spans[0][0]) / 1e3, groups
+
+
+def scan_run(argv, name, k, d, flush, card, held=True):
+    """cli.train on ``argv`` (scan_argv), under torch's deterministic
+    algorithms if ``held``, else its defaults. Returns its state, scalars,
+    launches and figures."""
+    trace_dir = os.path.join(d, f"trace_{name}")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with (deterministic() if held else contextlib.nullcontext(set())) \
+            as warned, scan_clock(flush) as clock, \
+            contextlib.redirect_stdout(out):
+        state = train_cli.main(scan_argv(argv, name, k, trace_dir))[0]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    picked = re.findall(r"scan_k=(\d+): blocks of", out.getvalue())
+    want = SCAN_K if k in (0, SCAN_K) else k
+    check(picked == ([str(want)] if want > 1 else []),
+          f"{name}: cli.train printed blocks of {picked} for --scan_k {k}")
+    check(clock["blocks"] == [want] * (SCAN_ITERS // want),
+          f"{name}: cli.train ran blocks {clock['blocks']}")
+    check(launches["mipmap_sample"] == 2 * SCAN_ITERS
+          and launches["mipmap_sample_dcoords"] == 2 * SCAN_ITERS
+          and sum(launches.values()) == 4 * SCAN_ITERS,
+          f"{name}: expected 2 K1 and 2 K3 launches a step, {launches}")
+    run_dir = os.path.join(d, "results", name)
+    ckpts = os.listdir(os.path.join(run_dir, "checkpoints"))
+    check(ckpts == [f"{str(SCAN_ITERS + 1).zfill(7)}.pt"],
+          f"{name}: checkpoints {ckpts}")
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    check({s["step"] for s in scalars} == set(range(2, SCAN_ITERS + 2))
+          and all(math.isfinite(s["value"]) for s in scalars),
+          f"{name}: scalars missing or not finite")
+    busy, span, groups = trace_busy(trace_dir)
+    counts, n_kernels, _ = trace_kernels(trace_dir)
+    rate = SCAN_BATCH * (SCAN_ITERS - SCAN_K) / clock["seconds"]
+    print(f"{name}: blocks of {want} ({'--scan_k 0' if k == 0 else k}), "
+          f"{'deterministic' if held else 'default'} algorithms, "
+          f"{seconds:.1f} s with its set-up; "
+          f"{rate:.2f} imgs/s over iterations {SCAN_K + 2} to "
+          f"{SCAN_ITERS + 1} ({clock['seconds']:.3f} s), peak memory "
+          f"{peak:.2f} GiB; the traced first {SCAN_K} steps: device busy "
+          f"{busy:.3f} of {span:.3f} ms, idle share {1 - busy / span:.4f} "
+          f"(busy {busy / SCAN_K:.1f} ms a traced step against "
+          f"{1e3 * clock['seconds'] / (SCAN_ITERS - SCAN_K):.1f} ms a timed "
+          f"one), "
+          f"K1 {counts['mipmap_pyramid_fwd']} and K3 "
+          f"{counts['mipmap_pyramid_dcoords']} of its {n_kernels} kernels "
+          f"({n_kernels / SCAN_K:.0f} a step); launches {launches}; warned "
+          f"of no deterministic algorithm: {sorted(warned)} [{card}]")
+    print(f"  {name}'s traced steps by kernel group, ms a step: "
+          + ", ".join(f"{g} {ms / SCAN_K:.2f}" for g, ms in sorted(
+              groups.items(), key=lambda kv: -kv[1])))
+    return state, scalars, launches, (rate, peak, 1 - busy / span)
+
+
+def same_state(a, b, what):
+    """Two runs' final states equal to the bit: the STN, the latent
+    learner, the EMA and both Adams' steps and moments."""
+    for part in ("t", "ll", "t_ema"):
+        sa, sb = (getattr(x, part).state_dict() for x in (a, b))
+        for key in sa:
+            check(torch.equal(sa[key], sb[key]),
+                  f"{what}: {part}.{key} differs")
+    for part in ("t_optim", "ll_optim"):
+        sa, sb = (getattr(x, part).state_dict()["state"] for x in (a, b))
+        check(sa.keys() == sb.keys(), f"{what}: {part} holds other params")
+        for i in sa:
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                check(torch.equal(sa[i][key], sb[i][key]),
+                      f"{what}: {part} {i} {key} differs")
+
+
+def scan(dev, card):
+    """The scan phase: the cats and the cars recipes at SCAN_BATCH through
+    cli.train in blocks of SCAN_K (picked by --scan_k 0) and in single
+    steps, from one saved state each, equal to the bit under torch's
+    deterministic algorithms; every K1 and K3 launch of the cars runs held
+    against its plain version; the cats runs again with torch's default
+    algorithms, as cli.train runs, in the other order. Returns the main
+    path's launches, the errors and the figures."""
+    start = time.perf_counter()
+    d = tempfile.mkdtemp()
+    gpath = os.path.join(d, "g.pt")
+    gen = Generator(GeneratorConfig(),
+                    generator=torch.Generator().manual_seed(3))
+    torch.save({"g_ema": gen.state_dict()}, gpath)
+    del gen
+    results = os.path.join(d, "results")
+    recipes = {
+        "cats": cats_argv(results, gpath, 1, "--exp-name", "cats",
+                          "--batch", str(SCAN_BATCH), "--ckpt_every", "1"),
+        "cars": cars_argv(results, gpath, SCAN_BATCH, 1, "--load_G_only",
+                          "--exp-name", "cars")}
+    errs, launches, figures = {}, {k: 0 for k in LAUNCHES}, {}
+    for recipe, argv in recipes.items():
+        # the saved state: the cold start (cats: 1M latents) and one step
+        zero_launches()
+        t0 = time.perf_counter()
+        with deterministic(), contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(argv + [
+                "--profile_dir", os.path.join(d, f"trace_{recipe}"),
+                "--profile_start", "0", "--profile_stop", "1"])
+        print(f"{recipe}: the state saved after the cold start and one step "
+              f"in {time.perf_counter() - t0:.1f} s")
+        launches = {k: launches[k] + LAUNCHES[k] for k in LAUNCHES}
+        saved = os.path.join(results, recipe, "checkpoints", "0000001.pt")
+        resumed = [a if a != gpath else saved for a in argv]
+        runs = {}
+        for k in (0, 1):
+            counts = {}
+            with (holding(errs, {}, counts) if recipe == "cars"
+                  else contextlib.nullcontext(lambda: None)) as flush:
+                runs[k] = scan_run(resumed, f"{recipe}_k{k or SCAN_K}", k,
+                                   d, flush, card)
+            if recipe == "cars":
+                check(counts == {"mipmap_sample": 2 * SCAN_ITERS,
+                                 "mipmap_sample_dcoords": 2 * SCAN_ITERS},
+                      f"held launches {counts}")
+            launches = {n: launches[n] + runs[k][2][n] for n in LAUNCHES}
+        same_state(runs[0][0], runs[1][0], f"{recipe}: blocks of {SCAN_K} "
+                   "against single steps")
+        check(runs[0][1] == runs[1][1], f"{recipe}: the blocked run logged "
+              "other scalars than the single steps")
+        print(f"{recipe} at batch {SCAN_BATCH}: blocks of {SCAN_K} and "
+              f"single steps equal to the bit over {SCAN_ITERS} iterations "
+              f"(parameters, EMA, Adam moments, every logged scalar)"
+              + (f"; every K1 and K3 launch of both runs held, max abs err "
+                 f"K1 {errs['mipmap_sample']:.3e}, K3 "
+                 f"{errs['mipmap_sample_dcoords']:.3e}"
+                 if recipe == "cars" else "") + f" [{card}]")
+        figures[recipe] = {(k or SCAN_K, "deterministic"): runs[k][3]
+                           for k in runs}
+        del runs
+        if recipe == "cats":
+            for k in (1, 0):
+                run = scan_run(resumed, f"{recipe}_k{k or SCAN_K}_default",
+                               k, d, lambda: None, card, held=False)
+                launches = {n: launches[n] + run[2][n] for n in LAUNCHES}
+                figures[recipe][(k or SCAN_K, "default")] = run[3]
+                del run
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    print(f"scan phase: {time.perf_counter() - start:.1f} s; "
+          + "; ".join(f"{r} k={k} ({algos}) {ips:.2f} imgs/s, peak "
+                      f"{p:.2f} GiB, idle {idle:.4f}"
+                      for r, f in figures.items()
+                      for (k, algos), (ips, p, idle) in f.items())
+          + f"; launches {launches} [{card}]")
+    return launches, errs, figures
+
+
 def main():
     start = time.perf_counter()
     dev, card = setup()
@@ -5296,13 +5553,15 @@ def main():
         dev, card, (train_rate, train_peak, cars_rate, cars_peak,
                     rates[128][0]))
     syn_launches, syn_errs, k4_synthetic = synthetic(dev, card)
+    scan_launches, scan_errs, scan_figures = scan(dev, card)
     dist_launches = distributed(dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
                       for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
                  + list(eval_errs.items()) + list(cluster_errs.items())
                  + list(vis_errs.items()) + list(bf16_errs.items())
-                 + list(tie_errs.items()) + list(syn_errs.items())):
+                 + list(tie_errs.items()) + list(syn_errs.items())
+                 + list(scan_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
         rate, parts, seconds = rates[b]
@@ -5331,6 +5590,12 @@ def main():
           f"(float32 {cars_rate:.2f}, {cars_peak:.2f}); congeal batch 128 "
           f"{bf16_rates[4]:.1f} imgs/s (float32 {rates[128][0]:.1f}) "
           f"[{card}]")
+    for recipe, runs in scan_figures.items():
+        print(f"{recipe} step batch {SCAN_BATCH}: " + "; ".join(
+            f"blocks of {k}, {algos} algorithms, {ips:.2f} imgs/s, peak "
+            f"{peak:.2f} GiB, a traced block's idle share {idle:.4f}"
+            for (k, algos), (ips, peak, idle) in runs.items())
+            + f" [{card}]")
     for name, row in cars_rows.items():
         print(f"{name} at the cars step's shapes, per launch: kernel "
               f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} "
@@ -5358,7 +5623,8 @@ def main():
     # (with its visuals), classifier CLI and AR apps, the visualize
     # phase's vis_correspondence CLI runs, and the precision phase's
     # bfloat16 cli.train runs and congeal forwards, the synthetic phase's
-    # demos and flagship-width steps, and the distributed phase's cli.train
+    # demos and flagship-width steps, the scan phase's cli.train runs at
+    # batch 5 (its saved states' runs too), and the distributed phase's cli.train
     # run without torchrun and its two gloo ranks' steps and apps (each
     # rank's counts read in that rank), each run with every count zeroed
     # just before it.
@@ -5368,8 +5634,8 @@ def main():
     # launches of composed_propagate_object's check.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
                 + eval_launches[k] + cluster_launches[k] + vis_launches[k]
-                + bf16_launches[k] + syn_launches[k] + dist_launches[k]
-                for k in LAUNCHES}
+                + bf16_launches[k] + syn_launches[k] + scan_launches[k]
+                + dist_launches[k] for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     for k in set(LAUNCHES) - set(MAIN_PATH_KERNELS):

@@ -83,10 +83,13 @@ def base_training_argparse():
     p.add_argument("--period", default=37500, type=float)
     p.add_argument("--decay", default=0.9, type=float)
     p.add_argument("--tm", default=2, type=int)
-    # step fusion and precision:
+    # step blocks and precision:
     p.add_argument("--scan_k", type=int, default=0,
-                   help="optimizer steps fused into one dispatch; 0 and 1 "
-                        "run one step per dispatch")
+                   help="optimizer steps a block: the steps run eagerly one "
+                        "after another and a block's scalars are read once "
+                        "(the same math and schedule as single steps; "
+                        "checkpoint and visual points round to block ends). "
+                        "0 = auto: 8 when the per-rank batch is < 16, else 1")
     p.add_argument("--perceptual_weights", type=str, default=None,
                    help="optional torch state_dict with VGG16 weights")
     p.add_argument("--compute_dtype", type=str, default="float32",

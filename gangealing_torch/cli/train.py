@@ -25,8 +25,11 @@ every ``--vis_every`` iterations, the congealed reals from the LMDB at
 ``--profile_stop``] with ``torch.profiler``. ``--compute_dtype bfloat16``
 runs both generator passes' synthesis and the perceptual trunk in
 bfloat16, as the JAX CLI does; the STN, the warps and the optimisers stay
-float32. What a later slice ports is refused with a message that names
-the slice: an explicit ``--scan_k > 1``.
+float32. ``--scan_k k`` runs the iterations in blocks of k steps, as the
+JAX CLI does; 0, the default, picks 8 when ``--batch`` (one rank's) is
+under 16 and 1 otherwise, the JAX CLI's rule. A block runs its k steps
+eagerly and reads their scalars from the card once; checkpoints,
+visuals and the profiler window land on block boundaries.
 """
 
 import os
@@ -53,10 +56,6 @@ from gangealing_torch.utils.download import find_model
 
 
 def check_supported(parser, args):
-    if args.scan_k > 1:
-        parser.error("--scan_k > 1 (one step per dispatch here; a CUDA graph "
-                     "would take its place) is not ported to gangealing_torch "
-                     "yet; it comes with a later performance slice")
     if args.profile_dir and args.profile_stop <= args.profile_start:
         parser.error(f"--profile_stop ({args.profile_stop}) must be > "
                      f"--profile_start ({args.profile_start})")
@@ -166,6 +165,13 @@ def main(argv=None):
             args.load_G_only = False
 
     cfg = build_configs(args)
+    # the JAX CLI's rule: --scan_k 0 picks 8 steps a block when one rank's
+    # batch is under 16 (the reference's per-GPU batch is 5), else 1
+    scan_k = args.scan_k if args.scan_k > 0 else (8 if args.batch < 16 else 1)
+    if scan_k > 1:
+        print(f"scan_k={scan_k}: blocks of {scan_k} optimizer steps, run "
+              "eagerly one after another, with one host read of a block's "
+              "scalars")
     rngs = [torch.Generator().manual_seed(args.seed * 8 + k) for k in range(3)]
     t = ComposedSTN(cfg.t, device=device, generator=rngs[0])
     ll = LatentLearner(cfg.ll, device=device, generator=rngs[1])
@@ -201,7 +207,7 @@ def main(argv=None):
                      n_mean=args.n_mean, vis_batch_size=args.vis_batch_size,
                      vis_every=args.vis_every, profile_dir=args.profile_dir,
                      profile_start=args.profile_start,
-                     profile_stop=args.profile_stop)
+                     profile_stop=args.profile_stop, scan_k=scan_k)
     return state, generator, perceptual, perceptual_fn
 
 

@@ -1,15 +1,22 @@
 """The GANgealing training loop, on one card or over ranks.
 
-Port of gangealing_tpu/train/loop.py (reference train.py:31-266) without the
-k-step scan: per iteration the psi and the learning rates from
-train/annealing.py, z and the generator's noise from a generator seeded by
-the iteration, one train step, scalars into ``scalars.jsonl``, checkpoints
-every ``ckpt_every`` iterations and at every zero of the learning rate,
-the training visuals (train/visuals.py) at the start, every ``vis_every``
-iterations, at iteration 100 and at every zero of the learning rate, and
-an optional ``torch.profiler`` window. The cold start fits the latent
-learner's PCA on a pool of W latents kept on the device, and with K heads
-its coefficients on K-Means++ centroids.
+Port of gangealing_tpu/train/loop.py (reference train.py:31-266): per
+iteration the psi and the learning rates from train/annealing.py, z and
+the generator's noise from a generator seeded by the iteration, one train
+step, scalars into ``scalars.jsonl``, checkpoints every ``ckpt_every``
+iterations and at every zero of the learning rate, the training visuals
+(train/visuals.py) at the start, every ``vis_every`` iterations, at
+iteration 100 and at every zero of the learning rate, and an optional
+``torch.profiler`` window. The cold start fits the latent learner's PCA on
+a pool of W latents kept on the device, and with K heads its coefficients
+on K-Means++ centroids.
+
+With ``scan_k`` k > 1 the iterations run in blocks of k
+(``state.train_block``, the JAX loop's ``lax.scan`` blocks), with the JAX
+loop's cadence: each iteration's inputs are drawn as a single step draws
+them, the block's metrics are read from the device once, and a
+checkpoint, a visual or the profiler window's ends land on the block's
+boundaries.
 
 Over ranks (parallel/mesh.py) every rank draws the global batch's z and
 both generator passes' noise from the iteration's generator and keeps its
@@ -28,7 +35,7 @@ from gangealing_torch.models.latent_learner import fit_pca, pca_encode
 from gangealing_torch.parallel.mesh import is_primary, shard_global_batch
 from gangealing_torch.train.checkpoint import save_checkpoint
 from gangealing_torch.train.clustering import kmeans_plusplus
-from gangealing_torch.train.state import TrainState, train_step
+from gangealing_torch.train.state import TrainState, train_block
 from gangealing_torch.train.annealing import (
     lr_cycle_iters, lr_used_at_iter, psi_at_iter)
 from gangealing_torch.train.visuals import (
@@ -108,17 +115,6 @@ def cold_start_ll(ll, generator, rng, debug=False, perceptual_fn=None):
         ll.assign_coefficients(pca_encode(centroids, components, mean))
 
 
-def _log(writer, i, metrics, psi, lr_t, lr_ll):
-    m = {k: float(metrics[k]) for k in ("p", "tv", "f")}
-    writer.add_scalar("Loss/Reconstruction", m["p"], i)
-    writer.add_scalar("Loss/TotalVariation", m["tv"], i)
-    writer.add_scalar("Loss/FlowIdentity", m["f"], i)
-    writer.add_scalar("Progress/psi", psi, i)
-    writer.add_scalar("Progress/STN_LearningRate", lr_t, i)
-    writer.add_scalar("Progress/LL_LearningRate", lr_ll, i)
-    return m
-
-
 def check_profile_window(profile_dir, profile_start, profile_stop,
                          start_iter, iters):
     """The JAX loop's checks of the profiler window (loop.py:118-125)."""
@@ -141,16 +137,25 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
                      ckpt_every=50000, args=None, real_loader=None,
                      sample_reals=None, n_sample=64, n_mean=8000,
                      vis_batch_size=250, vis_every=5000, profile_dir=None,
-                     profile_start=0, profile_stop=0):
+                     profile_start=0, profile_stop=0, scan_k=1):
     """Run iterations start_iter+1 .. cfg.iter. ``perceptual_fn(x, y)`` ->
     (N, 1, 1, 1). Returns the state.
+
+    ``scan_k``: run the iterations in blocks of this many steps while a
+    whole block fits, then single steps. A block does what its k single
+    steps do; its scalars are logged for each iteration as a single step
+    logs them, from one host read of the block's metrics, and a
+    checkpoint or a visual due at any iteration of a block is written at
+    its last iteration (the visual with that iteration's psi).
 
     ``real_loader`` (batches of real images, numpy) and ``sample_reals``
     feed the visuals' congealed reals; ``vis_every`` 0 draws no visuals.
     ``profile_dir``: trace iterations (profile_start, profile_stop] of
     this run, counted from ``start_iter`` (a resumed run traces its own
-    new steps), into a Chrome trace there; a window reaching past the
-    last iteration ends with it."""
+    new steps), into a Chrome trace there; the trace starts at the first
+    block that overlaps the window and stops at the end of the block that
+    reaches its end, and a window reaching past the last iteration ends
+    with it."""
     cfg = state.cfg
     check_profile_window(profile_dir, profile_start, profile_stop,
                          start_iter, cfg.iter)
@@ -184,45 +189,75 @@ def train_gangealing(state: TrainState, generator, perceptual_fn,
                 generator, state.t_ema, state.ll, real_loader, sample_reals,
                 sample_z, psi, n_mean, n_sample, i, writer, **kw)
 
+    scan_k = max(1, int(scan_k))
     prof = trace_first = None
     t0 = time.time()
+    n_total = cfg.iter - start_iter
+    idx = 0  # steps of this run before the block
     try:
         if vis_every > 0 and primary:
             vis(start_iter, 1.0 if cfg.anneal_psi > 0 else 0.0)
-        for i in range(start_iter + 1, cfg.iter + 1):
-            idx = i - start_iter - 1  # steps of this run before this one
-            if profile_dir and prof is None and profile_start <= idx \
-                    < profile_stop:
+        while idx < n_total:
+            blk = scan_k if idx + scan_k <= n_total else 1
+            iters = range(start_iter + idx + 1, start_iter + idx + blk + 1)
+            # start when the block overlaps the window: a window inside one
+            # block is captured whole
+            if profile_dir and prof is None and idx + blk > profile_start \
+                    and idx < profile_stop:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)  # a step boundary
-                prof, trace_first = start_trace(), i
-            psi = psi_at_iter(i, cfg.anneal_psi, cfg.anneal_fn)
-            lr_t, lr_ll = (lr_used_at_iter(i, lr, cfg.anneal_psi, cfg.period,
-                                           cfg.tm, cfg.decay)
-                           for lr in (cfg.stn_lr, cfg.ll_lr))
-            z, noise = rank_rows(*draw_step_inputs(
+                prof, trace_first = start_trace(), iters[0]
+            psis = [psi_at_iter(i, cfg.anneal_psi, cfg.anneal_fn)
+                    for i in iters]
+            lr_ts, lr_lls = ([lr_used_at_iter(i, lr, cfg.anneal_psi,
+                                              cfg.period, cfg.tm, cfg.decay)
+                              for i in iters]
+                             for lr in (cfg.stn_lr, cfg.ll_lr))
+            inputs = [rank_rows(*draw_step_inputs(
                 generator, iteration_rng(seed, i, device), cfg.batch, K), K)
-            metrics = train_step(state, generator, perceptual_fn, z, psi,
-                                 lr_t, lr_ll, noise=noise)
-            if prof is not None and idx + 1 >= profile_stop:
+                for i in iters]
+            metrics = train_block(state, generator, perceptual_fn,
+                                  [z for z, _ in inputs],
+                                  [noise for _, noise in inputs], psis,
+                                  lr_ts, lr_lls)
+            if prof is not None and idx + blk >= profile_stop:
                 stop_trace(prof, profile_dir)
                 prof = None
                 print(f"\n[profiler] trace of iterations {trace_first}.."
-                      f"{i} written to {profile_dir}", flush=True)
-            if primary and (i % log_every == 0 or i in zero_lr):
-                m = _log(writer, i, metrics, psi, lr_t, lr_ll)
-                rate = (i - start_iter) * cfg.batch / max(time.time() - t0,
-                                                          1e-9)
-                print(f"\r[{i}/{cfg.iter}] p={m['p']:.4f} tv={m['tv']:.6f} "
-                      f"psi={psi:.4f} {rate:.1f} imgs/s", end="", flush=True)
-            if primary and ckpt_every > 0 and (i % ckpt_every == 0
-                                               or i in zero_lr):
+                      f"{iters[-1]} written to {profile_dir}", flush=True)
+            logged = [j for j, i in enumerate(iters)
+                      if i % log_every == 0 or i in zero_lr]
+            if primary and logged:
+                # one host read of the block's metrics
+                p, tv, f = torch.stack([metrics[k] for k in ("p", "tv", "f")
+                                        ]).tolist()
+                for j in logged:
+                    i = iters[j]
+                    writer.add_scalar("Loss/Reconstruction", p[j], i)
+                    writer.add_scalar("Loss/TotalVariation", tv[j], i)
+                    writer.add_scalar("Loss/FlowIdentity", f[j], i)
+                    writer.add_scalar("Progress/psi", psis[j], i)
+                    writer.add_scalar("Progress/STN_LearningRate", lr_ts[j],
+                                      i)
+                    writer.add_scalar("Progress/LL_LearningRate", lr_lls[j],
+                                      i)
+                j = logged[-1]
+                rate = (iters[j] - start_iter) * cfg.batch / max(
+                    time.time() - t0, 1e-9)
+                print(f"\r[{iters[j]}/{cfg.iter}] p={p[j]:.4f} "
+                      f"tv={tv[j]:.6f} psi={psis[j]:.4f} {rate:.1f} imgs/s",
+                      end="", flush=True)
+            # a checkpoint or a visual due inside a block is written at its
+            # end, where the state is
+            if primary and ckpt_every > 0 and any(
+                    i % ckpt_every == 0 or i in zero_lr for i in iters):
                 save_checkpoint(os.path.join(results_path, "checkpoints",
-                                             f"{str(i).zfill(7)}.pt"),
-                                state, generator, i, args=args)
-            if primary and vis_every > 0 and (i % vis_every == 0
-                                              or i in early_vis):
-                vis(i, psi)
+                                             f"{str(iters[-1]).zfill(7)}.pt"),
+                                state, generator, iters[-1], args=args)
+            if primary and vis_every > 0 and any(
+                    i % vis_every == 0 or i in early_vis for i in iters):
+                vis(iters[-1], psis[-1])
+            idx += blk
         if prof is not None:  # the window reached past the last iteration
             stop_trace(prof, profile_dir)
             prof = None

@@ -3,7 +3,8 @@
 Port of gangealing_tpu/train/state.py (reference train.py:31-171): the loss,
 its backward, an Adam step for the STN and one for the latent learner, and
 the EMA of the STN. Learning rates are set on every step from the schedule
-(``lr_used_at_iter`` of train/annealing.py).
+(``lr_used_at_iter`` of train/annealing.py). ``train_block`` runs k such
+steps in order, the counterpart of the JAX package's ``make_train_scan``.
 
 Each Adam takes its module's parameters in ``learnable_key_order``, the
 order of the reference module's ``parameters()``, so that its state_dict
@@ -140,3 +141,20 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     terms = mean_over_ranks(torch.stack([ploss.detach(), tv.detach(),
                                          fid.detach()]))
     return {"p": terms[0], "tv": terms[1], "f": terms[2], **out}
+
+
+def train_block(state: TrainState, generator, perceptual_fn, zs, noises,
+                psis, lr_ts, lr_lls, pair_sampler=None):
+    """k GANgealing iterations in order, one ``train_step`` each: the JAX
+    package's ``make_train_scan``, whose scan runs the same math and
+    schedule as k single steps. ``zs``, ``noises``, ``psis``, ``lr_ts``
+    and ``lr_lls`` hold the k iterations' inputs, each as ``train_step``
+    takes it (a ``noises`` entry may be None). The steps run eagerly, one
+    after another; nothing here reads the device from the host. Returns
+    the metrics stacked on the device: "p", "tv" and "f" as (k,) tensors
+    and, for a clustering model, "assignments" as (k, N)."""
+    steps = [train_step(state, generator, perceptual_fn, z, psi, lr_t, lr_ll,
+                        noise=noise, pair_sampler=pair_sampler)
+             for z, noise, psi, lr_t, lr_ll in zip(
+                 zs, noises, psis, lr_ts, lr_lls, strict=True)]
+    return {k: torch.stack([m[k] for m in steps]) for k in steps[0]}

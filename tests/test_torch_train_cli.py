@@ -3,8 +3,9 @@ few iterations from a generator checkpoint in the reference schema, with
 the PCA cold start (``--debug``: 1000 latents), finite scalars, a
 checkpoint at ``--ckpt_every``, and ``--auto_resume`` picking it up; the
 training visuals and the profiler window write their files; a bfloat16
-run trains and checkpoints; the options of later slices are refused with
-the slice's name."""
+run trains and checkpoints; the clustering options give the JAX CLI's
+configuration. Blocks of steps (``--scan_k``) are tested in
+tests/test_torch_scan.py."""
 
 import dataclasses
 import json
@@ -104,13 +105,12 @@ def test_cli_train_and_auto_resume(tmp_path, small_widths):
 
 @pytest.mark.parametrize("extra,slice_name", [
     (["--num_heads", "2"], "cluster"), (["--flips"], "cluster"),
-    (["--vis_every", "5"], "visuals"), (["--scan_k", "4"], "performance"),
+    (["--vis_every", "5"], "visuals"),
     (["--compute_dtype", "bfloat16"], "precision"),
     (["--profile_dir", "p"], "profiling")])
-def test_cli_refuses_later_slices(tmp_path, capsys, small_widths, extra,
-                                  slice_name):
-    """The options of later slices are refused with the slice's name. The
-    clustering options are taken, and give the JAX CLI's configuration
+def test_cli_refuses_later_slices(tmp_path, small_widths, extra, slice_name):
+    """The options that later slices ported are taken. The clustering
+    options give the JAX CLI's configuration
     (tests/test_torch_cluster_apps.py trains with them). So are the
     visuals and the profiler window: a run of 2 iterations draws its
     grids at 0 and 1 (the zero of the learning rate) and at 2
@@ -170,10 +170,6 @@ def test_cli_refuses_later_slices(tmp_path, capsys, small_widths, extra,
         assert (cfg.t.num_heads, cfg.ll.num_heads, cfg.flips) == (
             jcfg.t.num_heads, jcfg.ll.num_heads, jcfg.flips)
         assert cfg.t.num_heads > 1 or cfg.flips
-        return
-    with pytest.raises(SystemExit):
-        tcli.main(_argv(tmp_path, 2, *extra))
-    assert slice_name in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("prefix", ["features.", "module."])

@@ -451,11 +451,11 @@ def _port_loop_events(monkeypatch, tmp_path, start_iter, **kw):
     events = []
     done = [start_iter]
 
-    def step(*a, **k):
-        done[0] += 1
-        m = torch.zeros(())
+    def block(state, generator, perceptual_fn, zs, *a, **k):
+        done[0] += len(zs)
+        m = torch.zeros(len(zs))
         return {"p": m, "tv": m, "f": m}
-    monkeypatch.setattr(tloop, "train_step", step)
+    monkeypatch.setattr(tloop, "train_block", block)
     monkeypatch.setattr(tloop, "create_training_visuals",
                         lambda *a, **k: events.append(("vis", a[9])))
     monkeypatch.setattr(tloop, "start_trace",
