@@ -4,7 +4,8 @@ serve the flagship ComposedSTN congeal forward through them, train the
 flagship GANgealing configuration through them with its visuals and a
 profiler window, and run the AR object-lens app and the eval apps
 (PCK-Transfer, flow scores, congeal_dataset and their CLIs, on LMDB
-datasets) through them; then train
+datasets) through them; then decode the reals through the native image
+loader and serve the congeal forward from its batches; then train
 the LSUN-cars clustering configuration with its cluster visuals and its
 cluster classifier and run the AR apps with that classifier; then render
 the correspondence videos (vis_correspondence) and turn a video into an
@@ -141,6 +142,18 @@ Phases:
      is counted), equal PCK counts, flow scores within 1e-4 relative,
      equal congeal_dataset decisions, aligned images within 5e-4 with
      the card's native convolutions (cuDNN's reading printed beside it);
+  6b. the loader phase (chip_smoke.py::loader, data/native_loader.py):
+     the native image loader built from gangealing_torch/native
+     (image_loader.cc and lmdb_kv.cc, the vendored libjpeg-turbo and
+     libpng headers) against the libjpeg-turbo and libpng16 that this
+     interpreter's Pillow wheel carries (their paths printed); the reals'
+     PNG LMDB and a JPEG LMDB of the same 200 images (quality 95) decoded
+     in batches of 50 on 8 threads, in index order, every image within
+     1e-5 of MultiResolutionDataset's PIL decode; the errors of an empty
+     dataset and of a resolution the LMDB lacks; the flagship congeal
+     forward at batch 50 on each of the 8 batches (K1 twice each, every
+     launch held against its plain version), the first against the same
+     forward of PIL's decode (out 5e-4, grid and flow 1e-4);
   7. the cluster phase: the reference's LSUN-cars run
      (scripts/training/lsun_cars.sh: 4 heads and flips, 5 directions,
      inject 6, G's 256 px image sampled with reflection padding, tv_weight
@@ -314,6 +327,7 @@ from gangealing_torch.cli import propagate_to_images as propagate_cli
 from gangealing_torch.cli import train as train_cli
 from gangealing_torch.cli import train_cluster_classifier as cls_cli
 from gangealing_torch.cli import vis_correspondence as vis_cli
+from gangealing_torch.data import native_loader
 from gangealing_torch.data.dataset import (
     DataLoader, MultiResolutionDataset, PCKDataset)
 from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
@@ -332,7 +346,7 @@ from gangealing_torch.ops import mipmap as mipmap_ops
 from gangealing_torch.ops import splat as splat_ops
 from gangealing_torch.ops.flow import total_variation_loss
 from gangealing_torch.ops.grid_sample import (
-    affine_grid, grid_sample, grid_sample_auto, grid_sample_cuda)
+    affine_grid, grid_sample, grid_sample_auto, grid_sample_cuda, jabs, jmax)
 from gangealing_torch.ops.mipmap import (
     _build_pyramid, _mipmap_warp_fold, _rebuild_stack, _sample_pyramid,
     mipmap_levels, mipmap_sample, mipmap_warp)
@@ -1396,16 +1410,116 @@ def hold(name, pairs, errs, where=None):
         errs[name] = max(errs.get(name, 0.0), err)
 
 
+def k3_f64(pyramid, grid, levels, dout, padding_mode):
+    """K3's function on the same inputs in float64 past the texel
+    coordinates: the plain version's ops (the stack rebuilt by
+    F.interpolate, the taps, clamps and tent of ``_sample_stack``)
+    differentiated by autograd, with each point's texel coordinates formed
+    in float32 as K3 and the plain version both form them. (d/dgrid jumps
+    where a coordinate crosses a texel edge, and a float32 coordinate is
+    up to half an ulp of the image's size from its float64 value: formed
+    in float64, the coordinates would put some points across an edge from
+    where both float32 sides put them.) Also, at every point, the sum of
+    the absolute values of the terms that d/dx, d/dy and d/dlevel each
+    sum, as K3 forms them: |dout| times a tap weight's slope times a
+    rebuilt texel, times |dx/dgrid| for d/dgrid. Returns (dgrid, dlevels,
+    the terms of dgrid, the terms of dlevels), float64, on the inputs'
+    device."""
+    level0, coarse, shape = pyramid
+    full, lp = shape.size, shape.lp
+    stack = torch.stack([
+        lv if d == 0 else F.interpolate(lv, size=(full, full),
+                                        mode="bilinear", align_corners=False)
+        for d, lv in enumerate(mipmap_ops._pyramid_levels(mipmap_ops.Pyramid(
+            level0.double(), coarse.double(), shape)))], dim=1)
+    stack = stack[..., lp:lp + shape.height, lp:lp + shape.width]
+    N, D, C, H, W = stack.shape
+    Ho, Wo = grid.shape[1:3]
+    g = grid.detach().float().requires_grad_()
+    lv = levels.detach().double().reshape(N, 1, -1).requires_grad_()
+    x, y = (grid_sample_ops._compute_coords(g[..., k].reshape(N, -1), size,
+                                            padding_mode, False)
+            for k, size in ((0, W), (1, H)))
+    dx, dy = (v[..., k].reshape(N, -1).double() for k, v in enumerate(
+        torch.autograd.grad((x.sum(), y.sum()), (g, g), retain_graph=True)))
+    x, y = x.double(), y.double()
+    img = stack.reshape(N, D * C, H * W)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx1, wy1 = x - x0, y - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    taps = []
+    for xc, yc in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+        v = grid_sample_ops._gather_2d(img, yc.clamp(0, H - 1).long() * W
+                                       + xc.clamp(0, W - 1).long())
+        if padding_mode == "zeros":
+            v = v * ((xc >= 0) & (xc < W) & (yc >= 0)
+                     & (yc < H)).double()[:, None]
+        taps.append(v.reshape(N, D, C, -1))
+    t00, t10, t01, t11 = taps
+    wx0, wx1, wy0, wy1 = (v[:, None, None] for v in (wx0, wx1, wy0, wy1))
+    warped = t00 * wx0 * wy0 + t10 * wx1 * wy0 + t01 * wx0 * wy1 \
+        + t11 * wx1 * wy1
+    dd = torch.arange(D, dtype=torch.float64, device=g.device)[None, :, None]
+    tent = jmax(1.0 - jabs(lv - dd), 0.0)
+    out = (warped * tent[:, :, None]).sum(dim=1)
+    cot = dout.double().reshape(N, C, -1)
+    dgrid, dlevels = torch.autograd.grad((out * cot).sum(), (g, lv))
+    with torch.no_grad():
+        a = cot.abs()[:, None]
+        s00, s10, s01, s11 = ((a * t.abs()).sum(2) for t in taps)
+        wx0, wx1, wy0, wy1 = (v[:, :, 0] for v in (wx0, wx1, wy0, wy1))
+        tx = dx.abs() * (tent * (wy0 * (s00 + s10)
+                                 + wy1 * (s01 + s11))).sum(1)
+        ty = dy.abs() * (tent * (wx0 * (s00 + s01)
+                                 + wx1 * (s10 + s11))).sum(1)
+        slope = ((lv - dd).abs() <= 1.0).double()
+        tl = (slope * (wx0 * wy0 * s00 + wx1 * wy0 * s10 + wx0 * wy1 * s01
+                       + wx1 * wy1 * s11)).sum(1)
+    return (dgrid.double(), dlevels.reshape(N, Ho, Wo),
+            torch.stack([tx, ty], -1).reshape(N, Ho, Wo, 2),
+            tl.reshape(N, Ho, Wo))
+
+
+def k3_float64_reading(call, k, at):
+    """For a K3 launch ``call`` = (args, (dgrid, dlevels)) whose output
+    ``k`` (0 d/dgrid, 1 d/dlevels) fails its hold worst at ``at``: the
+    kernel's and the float32 plain version's errors against float64
+    (``k3_f64``) at that point and over the output, the sum of the
+    absolute terms there and the point's coordinates in texels."""
+    (pyramid, grid, levels, dout, pm), outs = call
+    ref = k3_f64(pyramid, grid, levels, dout, pm)
+    truth, terms = ref[k], ref[2 + k]
+    plain = backward_pairs([call], k3_graph)[k][1]
+    errs = [(o.double() - truth).abs() for o in (outs[k], plain)]
+    n, h, w = at[:3]
+    size = pyramid.shape.width
+    cx, cy = (float(grid_sample_ops._compute_coords(
+        grid[n, h, w, j].float(), size, pm, False)) for j in range(2))
+    return (f"against float64 ({float(truth[at]):.9e}): kernel "
+            f"{float(errs[0][at]):.3e} there, {float(errs[0].max()):.3e} "
+            f"over the output; the float32 plain version "
+            f"{float(errs[1][at]):.3e} there, {float(errs[1].max()):.3e} "
+            f"over the output; the sum of the absolute terms there "
+            f"{float(terms[at]):.3e} (largest {float(terms.max()):.3e}); "
+            f"texel coordinates ({cx:.9f}, {cy:.9f}) in float32")
+
+
 def k3_where(calls):
     """For ``hold``: the recorded grid and level of the point of a K3
-    output's element (each launch gives d/dgrid, then d/dlevels)."""
+    output's element (each launch gives d/dgrid, then d/dlevels), and the
+    float64 reading that tells a kernel fault from a float32 sum's
+    cancellation (``k3_float64_reading``)."""
     def where(i, at):
         pyramid, grid, levels, _, pm = calls[i // 2][0]
         n, h, w = at[:3]
         gx, gy = (float(v) for v in grid[n, h, w])
-        return (f"grid ({gx:.9e}, {gy:.9e}), level "
+        text = (f"grid ({gx:.9e}, {gy:.9e}), level "
                 f"{float(levels[n, h, w]):.9e}, {pm} padding, a pyramid "
                 f"of {pyramid.shape.size} px")
+        try:
+            return text + "; " + k3_float64_reading(calls[i // 2], i % 2, at)
+        except Exception as e:  # the reading must not hide the failure
+            return text + f"; the float64 reading failed: {e!r}"
     return where
 
 
@@ -2588,22 +2702,28 @@ CONGEAL_IMAGES = 64
 SCORE_RTOL, TIE_REL = 1e-4, 1e-5
 
 
-def png_bytes(img):
-    """A (3, H, W) image in [-1, 1] as PNG bytes."""
-    import io
+def png_bytes(img, fmt="PNG", **kw):
+    """A (3, H, W) image in [-1, 1] as PNG bytes (or as ``fmt``, with
+    PIL's save options ``kw``)."""
     from PIL import Image
     arr = np.round((img + 1) * 127.5).clip(0, 255).astype(np.uint8)
     buf = io.BytesIO()
-    Image.fromarray(arr.transpose(1, 2, 0)).save(buf, format="PNG")
+    Image.fromarray(arr.transpose(1, 2, 0)).save(buf, format=fmt, **kw)
     return buf.getvalue()
 
 
-def image_lmdb(path, imgs):
-    """The images as an LMDB of PNGs, as the port's prepare_data writes
-    one, through the port's own writer; encoded on 8 threads."""
+def jpeg_bytes(img):
+    """A (3, H, W) image in [-1, 1] as JPEG bytes at quality 95."""
+    return png_bytes(img, "JPEG", quality=95)
+
+
+def image_lmdb(path, imgs, encode=png_bytes):
+    """The images as an LMDB of PNGs (or of what ``encode`` makes), as the
+    port's prepare_data writes one, through the port's own writer; encoded
+    on 8 threads."""
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(8) as pool:
-        encoded = list(pool.map(png_bytes, imgs))
+        encoded = list(pool.map(encode, imgs))
     items = {f"256-{str(i).zfill(5)}".encode(): b
              for i, b in enumerate(encoded)}
     items[b"length"] = str(len(imgs)).encode()
@@ -2985,6 +3105,126 @@ def evaluate(dev, card):
           f"{clis_s:.1f} s, the card against the CPU path "
           f"{time.perf_counter() - t0:.1f} s of it [{card}]")
     return launches, errs
+
+
+# The loader phase (data/native_loader.py): the native image loader built
+# from gangealing_torch/native against the libjpeg-turbo and libpng16 that
+# this interpreter's Pillow carries; the reals' PNG LMDB and a JPEG LMDB of
+# the same images (quality 95) decoded on LOADER_THREADS threads, each
+# image held against MultiResolutionDataset's PIL decode within LOADER_TOL
+# (tests/test_native_loader.py's); the flagship congeal forward at
+# EVAL_BATCH fed by the loader's batches.
+LOADER_TOL = 1e-5
+LOADER_THREADS = 8
+
+
+def loader_decodes(path, what):
+    """The loader's batches of the LMDB at ``path`` in index order, each
+    image held against the PIL path. Returns the batches and the largest
+    difference."""
+    pil = MultiResolutionDataset(path, resolution=256)
+    ldr = native_loader.NativeImageLoader(
+        path, resolution=256, batch=EVAL_BATCH, num_threads=LOADER_THREADS,
+        shuffle=False)
+    check(len(ldr) == len(pil), f"{what}: the loader counts {len(ldr)} "
+          f"images, the LMDB {len(pil)}")
+    batches, err = [], 0.0
+    for b in range(-(-len(pil) // EVAL_BATCH)):
+        imgs, idx = ldr.next()
+        want = np.arange(b * EVAL_BATCH, min(len(pil), (b + 1) * EVAL_BATCH))
+        check(np.array_equal(idx, want), f"{what}: batch {b} holds {idx}")
+        check(imgs.dtype == np.float32 and imgs.shape == (
+            len(want), 3, 256, 256), f"{what}: batch {imgs.dtype} "
+            f"{imgs.shape}")
+        err = max([err] + [float(np.abs(img - pil[int(i)]).max())
+                           for img, i in zip(imgs, idx)])
+        batches.append(imgs)
+    ldr.close()
+    check(err <= LOADER_TOL, f"{what}: the native decode is {err:.3e} from "
+          f"PIL's")
+    return batches, err
+
+
+def loader(dev, card, reals):
+    """The loader phase. Returns the main path's launches (the congeal
+    forwards fed by the loader), the errors and the check's launches."""
+    start = time.perf_counter()
+    d = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    linked = native_loader.linked_libraries()
+    print(f"native loader: build/torch_native/libgt_loader.so built or "
+          f"loaded in {time.perf_counter() - t0:.2f} s, linked to "
+          f"{linked[0]} and {linked[1]}")
+    jpegs = image_lmdb(os.path.join(d, "jpeg"), smooth_images(
+        VIS_REALS, torch.Generator().manual_seed(21)).numpy(), jpeg_bytes)
+    fed = {}
+    for what, path in (("PNG", reals), ("JPEG", jpegs)):
+        fed[what], err = loader_decodes(path, what)
+        print(f"native loader, {what}: {VIS_REALS} 256 px images in "
+              f"{len(fed[what])} batches of {EVAL_BATCH} on {LOADER_THREADS} "
+              f"threads, in index order, within {err:.3e} of PIL's decode "
+              f"(MultiResolutionDataset; gate {LOADER_TOL})")
+    write_lmdb(os.path.join(d, "empty"), {b"length": b"0"})
+    try:
+        native_loader.NativeImageLoader(os.path.join(d, "empty"),
+                                        resolution=256, batch=4)
+        check(False, "the loader opened an empty dataset")
+    except IOError as e:
+        empty = str(e)
+    wrong = native_loader.NativeImageLoader(reals, resolution=128, batch=4,
+                                            num_threads=2)
+    try:
+        wrong.next()
+        check(False, "the loader decoded 128 px images from a 256 px LMDB")
+    except RuntimeError as e:
+        check("resolution=128" in str(e), f"wrong resolution: {e}")
+        missing = str(e)
+    finally:
+        wrong.close()
+    print(f"native loader errors: an empty dataset: {empty!r}; a missing "
+          f"resolution: {missing!r}")
+
+    ckpt = os.path.join(d, "stn.pt")
+    make_checkpoint(ckpt)
+    model, _ = load_stn(ckpt, supersize=256, device=dev)
+    # the main path: every launch count starts at 0 here
+    zero_launches()
+    results = []
+    with recorded(mipmap_ops, "mipmap_sample") as k1:
+        for imgs in fed["PNG"] + fed["JPEG"]:
+            results.append(congeal(model, torch.from_numpy(imgs).to(dev)))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    forwards = len(results)
+    check(launches["mipmap_sample"] == 2 * forwards
+          and sum(launches.values()) == 2 * forwards,
+          f"{forwards} forwards launched {launches}; expected K1 twice each")
+    for r in results:
+        check_outputs(r, EVAL_BATCH)
+    errs = {}
+    with torch.no_grad():
+        hold("mipmap_sample", [(out, _sample_pyramid(*a)) for a, out in k1],
+             errs)
+    del k1
+    # the same forward on PIL's decode of the first PNG batch
+    before = dict(LAUNCHES)
+    pil = MultiResolutionDataset(reals, resolution=256)
+    ref = congeal(model, torch.from_numpy(np.stack(
+        [pil[i] for i in range(EVAL_BATCH)])).to(dev))
+    torch.cuda.synchronize()
+    check_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    diffs = [float((a - b).abs().max()) for a, b in zip(results[0], ref)]
+    check(diffs[0] <= OUT_TOL and max(diffs[1:3]) <= GRID_TOL,
+          f"the forward of the loader's batch against PIL's: {diffs}")
+    shutil.rmtree(d)
+    print(f"loader phase: {forwards} flagship congeal forwards at batch "
+          f"{EVAL_BATCH} fed by the loader (PNG and JPEG), launches "
+          f"{launches}, each K1 launch within "
+          f"{errs['mipmap_sample']:.3e} of its plain version; the first "
+          f"against the forward of PIL's decode: out {diffs[0]:.3e}, grid "
+          f"{diffs[1]:.3e}, flow {diffs[2]:.3e}, scores {diffs[3]:.3e}; "
+          f"{time.perf_counter() - start:.1f} s [{card}]")
+    return launches, errs, check_launches
 
 
 # The cluster phase: the reference's LSUN-cars run
@@ -5543,6 +5783,7 @@ def main():
     ar_rate, ar_peak, ar_launches, ar_check_launches, ar_errs, \
         splat_times, k2_ar = ar(dev, card)
     eval_launches, eval_errs = evaluate(dev, card)
+    loader_launches, loader_errs, loader_checks = loader(dev, card, reals)
     cluster_launches, cluster_errs, cars_rows, cluster_rates = cluster(
         dev, card, reals)
     vis_launches, vis_errs, vis_rates = visualize(dev, card, reals)
@@ -5556,9 +5797,10 @@ def main():
     scan_launches, scan_errs, scan_figures = scan(dev, card)
     dist_launches = distributed(dev, card)
     check_launches = {k: check_launches[k] + ar_check_launches[k]
-                      for k in LAUNCHES}
+                      + loader_checks[k] for k in LAUNCHES}
     for k, v in (list(train_errs.items()) + list(ar_errs.items())
-                 + list(eval_errs.items()) + list(cluster_errs.items())
+                 + list(eval_errs.items()) + list(loader_errs.items())
+                 + list(cluster_errs.items())
                  + list(vis_errs.items()) + list(bf16_errs.items())
                  + list(tie_errs.items()) + list(syn_errs.items())
                  + list(scan_errs.items())):
@@ -5619,7 +5861,8 @@ def main():
     measured["grid_sample"] = k2_ar
     measured["grid_sample_dgrid"] = k4_synthetic
     # "launches" counts the main path only: serve, cli.train (with its
-    # visuals), the AR apps, the eval apps, the cluster phase's cars run
+    # visuals), the AR apps, the eval apps, the loader phase's congeal
+    # forwards, the cluster phase's cars run
     # (with its visuals), classifier CLI and AR apps, the visualize
     # phase's vis_correspondence CLI runs, and the precision phase's
     # bfloat16 cli.train runs and congeal forwards, the synthetic phase's
@@ -5630,10 +5873,12 @@ def main():
     # just before it.
     # The backward kernels of an image that needs a gradient (K5a, K5b)
     # run only in the side checks, which count under "check_launches" with
-    # the K2 and K4 launches of the antialias=False step and the K6
-    # launches of composed_propagate_object's check.
+    # the K2 and K4 launches of the antialias=False step, the K6
+    # launches of composed_propagate_object's check and the loader phase's
+    # K1 launches on PIL's decode.
     launches = {k: launches[k] + train_launches[k] + ar_launches[k]
-                + eval_launches[k] + cluster_launches[k] + vis_launches[k]
+                + eval_launches[k] + loader_launches[k]
+                + cluster_launches[k] + vis_launches[k]
                 + bf16_launches[k] + syn_launches[k] + scan_launches[k]
                 + dist_launches[k] for k in LAUNCHES}
     for k in MAIN_PATH_KERNELS:

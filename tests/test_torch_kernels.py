@@ -107,16 +107,18 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 56
+    assert len(modules) >= 57
     assert {"gangealing_torch.train.synthetic",
-            "gangealing_torch.models.lpips_backbones"} <= set(modules)
+            "gangealing_torch.models.lpips_backbones",
+            "gangealing_torch.data.native_loader"} <= set(modules)
 
 
 def test_port_sources_import_nothing_of_jax():
     """No line of the port's modules (the multi-process runtime
     gangealing_torch/parallel among them) or of the card scripts
     (chip_smoke.py, the variants scripts, chip_cars_batch.py,
-    chip_serve_rates.py, chip_bf16_noise.py, chip_dist_determinism.py)
+    chip_serve_rates.py, chip_bf16_noise.py, chip_dist_determinism.py,
+    chip_loader.py)
     imports jax or the JAX package, at top level or inside a
     function."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|gangealing_tpu)"
@@ -125,7 +127,8 @@ def test_port_sources_import_nothing_of_jax():
     assert {"mesh.py", "launch.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
     chips = sorted(REPO.glob("chip_*.py"))
-    assert len(chips) >= 6
+    assert len(chips) >= 6 and "chip_loader.py" in {f.name for f in chips}
+    assert "native_loader.py" in {f.name for f in files}
     files += chips
     bad = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
            for f in files

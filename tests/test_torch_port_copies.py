@@ -178,6 +178,43 @@ def test_native_lmdb_source_is_a_byte_copy():
         assert f.read() == ref
 
 
+def test_native_loader_source_is_a_byte_copy():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "native", "image_loader.cc"), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(repo, "gangealing_torch", "native",
+                           "image_loader.cc"), "rb") as f:
+        assert f.read() == ref
+
+
+# The native loader's build headers and their licence texts, each a byte
+# copy of a file of libjpeg62-turbo-dev 2.1.5 or libpng-dev 1.6.39 as a
+# Debian machine installs them.
+VENDORED = {
+    "jpeglib.h": "/usr/include/jpeglib.h",
+    "jmorecfg.h": "/usr/include/jmorecfg.h",
+    "jconfig.h": "/usr/include/x86_64-linux-gnu/jconfig.h",
+    "png.h": "/usr/include/png.h",
+    "pngconf.h": "/usr/include/pngconf.h",
+    "pnglibconf.h": "/usr/include/pnglibconf.h",
+    "libjpeg-turbo.copyright": "/usr/share/doc/libjpeg62-turbo-dev/copyright",
+    "libpng.copyright": "/usr/share/doc/libpng-dev/copyright",
+}
+
+
+@pytest.mark.parametrize("name", sorted(VENDORED))
+def test_vendored_header_is_a_byte_copy(name):
+    if not os.path.exists("/usr/include/jpeglib.h"):
+        pytest.skip("this machine has no libjpeg headers to compare with")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    include = os.path.join(repo, "gangealing_torch", "native", "include")
+    assert sorted(os.listdir(include)) == sorted(VENDORED)
+    with open(VENDORED[name], "rb") as f:
+        ref = f.read()
+    with open(os.path.join(include, name), "rb") as f:
+        assert f.read() == ref
+
+
 def test_build_shared_lib_matches_jax(tmp_path):
     """Both build a missing library, leave a newer one alone, rebuild one
     older than a source, and on a compile error raise and leave neither a
