@@ -4603,20 +4603,25 @@ def steady_rate(text, batch):
     return (last - 1) * batch / (secs[last] - secs[1])
 
 
-def annotation_ms(trace_dir, name):
-    """The device time (ms) under the record_function ``name`` in the one
-    Chrome trace in ``trace_dir``, and its host time, each summed, and the
-    number of its host spans."""
+def span_ms(trace_dir, name):
+    """The device time (ms) of the kernels, copies and fills launched
+    inside the span ``name`` (``utils/profiling.py::span``: a ``cpu_op``
+    of the host) in the one Chrome trace in ``trace_dir``, and the span's
+    host time, each summed, and the number of its host spans."""
     files = os.listdir(trace_dir)
     check(len(files) == 1, f"the profiler window wrote {files}")
     with open(os.path.join(trace_dir, files[0])) as f:
         events = json.load(f)["traceEvents"]
-    dur = {cat: sum(e.get("dur", 0) for e in events
-                    if e.get("name") == name and e.get("cat") == cat) / 1e3
-           for cat in ("gpu_user_annotation", "user_annotation")}
-    n = sum(e.get("name") == name and e.get("cat") == "user_annotation"
-            for e in events)
-    return dur["gpu_user_annotation"], dur["user_annotation"], n
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == name and e.get("cat") == "cpu_op"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(a <= e["ts"] <= b for a, b in spans)}
+    device = sum(e["dur"] for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e.get("args", {}).get("correlation") in launched)
+    return device / 1e3, sum(b - a for a, b in spans) / 1e3, len(spans)
 
 
 def dist_window(d, name):
@@ -4713,10 +4718,9 @@ def nccl_world_one(dev, card, d, gpath):
     default_rate, more = plain_train(d, gpath, "default", False)
     launches = {k: launches[k] + more[k] for k in LAUNCHES}
     spread = compare_runs(d, "plain", "default")
-    ar_dev, ar_host, n_ar = annotation_ms(os.path.join(d, "trace_nccl"),
-                                          "all_reduce_grads")
-    check(annotation_ms(os.path.join(d, "trace_plain"),
-                        "all_reduce_grads")[2] == 0,
+    ar_dev, ar_host, n_ar = span_ms(os.path.join(d, "trace_nccl"),
+                                    "train.allreduce")
+    check(span_ms(os.path.join(d, "trace_plain"), "train.allreduce")[2] == 0,
           "the plain run all-reduced")
     counts, _, _ = trace_kernels(os.path.join(d, "trace_nccl"))
     steps = DIST_PROFILE[1] - DIST_PROFILE[0]
@@ -4735,7 +4739,7 @@ def nccl_world_one(dev, card, d, gpath):
           f"{rel[1][1]} {rel[2]:.6e}; gate {DIST_LOSS_RTOL}), the last "
           f"checkpoint's parameters within {l2['t']:.3e} (STN) and "
           f"{l2['ll']:.3e} (ll) in relative L2 (gate {DIST_PARAM_L2}); "
-          f"all_reduce_grads {ar_dev / steps:.4f} ms of device time and "
+          f"train.allreduce {ar_dev / steps:.4f} ms of device time and "
           f"{ar_host / steps:.4f} ms of host time a step ({n_ar} calls in "
           f"{steps} traced steps; the trace's K1 "
           f"{counts['mipmap_pyramid_fwd']}, K3 "
@@ -4743,6 +4747,7 @@ def nccl_world_one(dev, card, d, gpath):
     check(rel[0] <= DIST_LOSS_RTOL, "torchrun's loss terms differ")
     check(max(l2.values()) <= DIST_PARAM_L2, "torchrun's parameters differ")
     check(n_ar == steps, f"{n_ar} all-reduces in {steps} traced steps")
+    check(ar_dev > 0, "the trace holds no device work of train.allreduce")
     check(counts["mipmap_pyramid_fwd"] > 0
           and counts["mipmap_pyramid_dcoords"] > 0,
           "torchrun's trace holds no K1 or no K3 kernel")

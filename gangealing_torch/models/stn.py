@@ -28,6 +28,7 @@ from gangealing_torch.ops.mipmap import mipmap_warp
 from gangealing_torch.ops.resample import (
     bilinear_downsample, interpolate_bilinear)
 from gangealing_torch.ops.splat import splat2d_pair_auto
+from gangealing_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +170,7 @@ def check_oob(grid, image_bounds, out_hw, split_size, threshold=0.025):
     return oob_x | oob_y
 
 
+@span("stn.sample")
 def _warp(img, grid, antialias, padding_mode):
     img, grid = img.contiguous(), grid.contiguous()
     if antialias:
@@ -353,6 +355,7 @@ class SpatialTransformer(nn.Module):
             self.warp_head = SimilarityHead(ch4, cfg.num_heads, cfg.antialias,
                                             device=device)
 
+    @span("stn.features")
     def features(self, img):
         """Encoder: downsample to flow_size, conv stack, final head features.
         The conv stack runs in ``cfg.compute_dtype``; its output comes back
@@ -426,6 +429,7 @@ class ComposedSTN(nn.Module):
             SpatialTransformer(s, device=device, generator=generator)
             for s in cfg.stn_cfgs])
 
+    @span("stn.composed")
     def forward(self, input_img, output_resolution=None, iters=1,
                 warp_policy="cartesian", alpha=None, padding_mode="border",
                 image_bounds=None, return_out_of_bounds=False,

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gangealing_torch.utils.profiling import span
+
 _HOST_GROUP = {}  # the gloo group of the host-side helpers, once made
 
 
@@ -217,7 +219,7 @@ def all_reduce_grads(*modules):
     if not dist.is_initialized():
         return
     W = world_size()
-    with torch.profiler.record_function("all_reduce_grads"):
+    with span("train.allreduce"):
         for module in modules:
             grads = [p.grad for p in module.parameters()
                      if p.grad is not None]

@@ -13,6 +13,7 @@ passes' synthesis; their images come back float32.
 import torch
 
 from gangealing_torch.ops.resample import bilinear_downsample
+from gangealing_torch.utils.profiling import span
 
 
 def resize_fake2stn(x, gen_size, flow_size):
@@ -29,14 +30,17 @@ def sample_gan_supervised_pairs(generator, ll, z, psi, flow_size,
     reach ``ll`` through the second generator pass unless ``freeze_ll``.
     ``noise``: None, or a pair of per-layer noise lists, one per pass."""
     n_unaligned, n_aligned = noise if noise is not None else (None, None)
-    with torch.no_grad():
+    with span("train.generator"), torch.no_grad():
         unaligned, w = generator([z], noise=n_unaligned, rng=rng,
                                  return_latents=True, compute_dtype=compute_dtype)
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not freeze_ll):
-        w_aligned = ll(w[:, 0, :], psi)
-        aligned, _ = generator([w_aligned], input_is_latent=True,
-                               noise=n_aligned, rng=rng, compute_dtype=compute_dtype)
-    return unaligned, resize_fake2stn(aligned, generator.cfg.size, flow_size)
+    with span("train.generator"):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not freeze_ll):
+            w_aligned = ll(w[:, 0, :], psi)
+            aligned, _ = generator([w_aligned], input_is_latent=True,
+                                   noise=n_aligned, rng=rng,
+                                   compute_dtype=compute_dtype)
+        target = resize_fake2stn(aligned, generator.cfg.size, flow_size)
+    return unaligned, target
 
 
 def _pairs(generator, stn, ll, z, psi, freeze_ll, noise, rng, pair_sampler,
@@ -68,7 +72,9 @@ def gangealing_loss(generator, stn, ll, perceptual_fn, z, psi,
         resized, padding_mode=padding_mode,
         input_img_for_sampling=unaligned if sample_from_full_res else None,
         output_resolution=flow_size if sample_from_full_res else None)
-    return perceptual_fn(pred, target).mean(), delta_flow
+    with span("train.perceptual"):
+        ploss = perceptual_fn(pred, target).mean()
+    return ploss, delta_flow
 
 
 def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
@@ -99,14 +105,15 @@ def assign_fake_images_to_clusters(generator, stn, ll, perceptual_fn, z, psi,
         resized, padding_mode=padding_mode,
         input_img_for_sampling=unaligned if sample_from_full_res else None,
         output_resolution=flow_size if sample_from_full_res else None)
-    ploss = perceptual_fn(pred, target)
-    if flips:
-        distances = ploss.reshape(2, batch, num_heads).transpose(0, 1) \
-            .reshape(batch, 2 * num_heads)
-    else:
-        distances = ploss.reshape(batch, num_heads)
-    min_idx = distances.argmin(dim=1)
-    min_val = distances.gather(1, min_idx[:, None])[:, 0]
+    with span("train.perceptual"):
+        ploss = perceptual_fn(pred, target)
+        if flips:
+            distances = ploss.reshape(2, batch, num_heads).transpose(0, 1) \
+                .reshape(batch, 2 * num_heads)
+        else:
+            distances = ploss.reshape(batch, num_heads)
+        min_idx = distances.argmin(dim=1)
+        min_val = distances.gather(1, min_idx[:, None])[:, 0]
     return min_val, min_idx, pred, delta_flow, unaligned, resized, distances
 
 

@@ -34,6 +34,7 @@ from gangealing_torch.train.losses import (
     gangealing_cluster_loss, gangealing_loss)
 from gangealing_torch.io.torch_import import learnable_key_order
 from gangealing_torch.parallel.mesh import all_reduce_grads, mean_over_ranks
+from gangealing_torch.utils.profiling import span
 
 EMA_ACCUM = 0.5 ** (32 / (10 * 1000))  # train.py:77
 
@@ -92,6 +93,7 @@ def set_lr(optim, lr):
         group["lr"] = float(lr)
 
 
+@span("train.step")
 def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
                lr_ll, noise=None, rng=None, pair_sampler=None):
     """One GANgealing iteration. ``perceptual_fn(x, y)`` -> (N, 1, 1, 1);
@@ -132,12 +134,14 @@ def train_step(state: TrainState, generator, perceptual_fn, z, psi, lr_t,
     fid = flow_identity_loss(delta_flow) if cfg.flow_identity_weight > 0 \
         else zero
     total = ploss + cfg.tv_weight * tv + cfg.flow_identity_weight * fid
-    total.backward()
-    all_reduce_grads(state.t, state.ll)
-    state.t_optim.step()
-    if not cfg.freeze_ll:
-        state.ll_optim.step()
-    state.ema_update()
+    with span("train.backward"):
+        total.backward()
+    with span("train.update"):
+        all_reduce_grads(state.t, state.ll)
+        state.t_optim.step()
+        if not cfg.freeze_ll:
+            state.ll_optim.step()
+        state.ema_update()
     terms = mean_over_ranks(torch.stack([ploss.detach(), tv.detach(),
                                          fid.detach()]))
     return {"p": terms[0], "tv": terms[1], "f": terms[2], **out}

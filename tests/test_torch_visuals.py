@@ -1,5 +1,5 @@
 """The port's training visuals, flow colouring, the loop's visuals and
-profiler window and its timers against the JAX package's, on the CPU.
+profiler window against the JAX package's, on the CPU.
 
 The small training configuration of ``test_torch_train_common`` (G 64 px,
 the STN at flow_size 64 with 0.05 noise on its weights, vgg_ssl) and its
@@ -19,7 +19,6 @@ profiler window's first and last step equal, and its refusals' messages.
 
 import json
 import os
-import time
 from importlib import import_module
 
 import numpy as np
@@ -47,7 +46,6 @@ from test_torch_cluster_train import ClusterSetup
 jvis = import_module("gangealing_tpu.train.visuals")
 jloop = import_module("gangealing_tpu.train.loop")
 jflow = import_module("gangealing_tpu.utils.flow_vis")
-jprof = import_module("gangealing_tpu.utils.profiling")
 
 OUT_TOL, GRID_TOL, RGB_TOL = 5e-4, 1e-4, 1.0 / 255 + 1e-6
 PSI = 0.6
@@ -62,7 +60,7 @@ def reals(seed, n):
 
 
 # ---------------------------------------------------------------------------
-# flow colouring, the composed forward's options, the timers
+# flow colouring, the composed forward's options, the trace
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("per_sample", [False, True])
@@ -131,26 +129,6 @@ def test_unfold_and_intermediates_match_jax(K, transforms):
                                    rtol=0)
         np.testing.assert_allclose(g.numpy(), np.asarray(rg), atol=GRID_TOL,
                                    rtol=0)
-
-
-def test_timed_call_and_throughput():
-    """tests/test_parallel.py::test_profiling_utils, on the port's timers;
-    then a call that sleeps 50 ms: the median time at least that and
-    under 250 ms (a loaded host oversleeps), the items/s of a batch of 64
-    its inverse."""
-    def f(x):
-        return (x * 2).sum()
-    x = torch.ones(64, 64)
-    assert tprof.timed_call(f, x, reps=2) >= 0.0
-    assert tprof.throughput(f, 64, x, reps=2) > 0
-    assert jprof.timed_call(f, jnp.ones((64, 64)), reps=2) >= 0.0
-
-    def nap(x):
-        time.sleep(0.05)
-        return x
-    dt = tprof.timed_call(nap, x, reps=3)
-    assert 0.05 <= dt < 0.25
-    assert 64 / 0.25 < tprof.throughput(nap, 64, x, reps=3) <= 64 / 0.05
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
