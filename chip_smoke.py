@@ -24,6 +24,13 @@ Phases:
      card (nvidia-smi name and power limit) and torch version, switch TF32 off;
   2. each kernel against its plain version at the flagship shapes (N=8, C=3,
      256x256 source, 128x128 output) in the three padding modes, atol 1e-5;
+  2a. the FIR kernel (fir_kernel): upfirdn2d forward and d/dx at the
+     congeal cell's first STN blur (50 x 64 x 128^2, pad 2) and the cats
+     step's largest G blur (40 x 128 x 257^2, gain 4, pad 1) against the
+     plain version (F.pad and ATen's depthwise conv, its autograd), to its
+     bits, timed beside it, its bytes bound and one grouped F.conv2d with
+     its padding; then one launch a Blur in a flagship congeal forward at
+     50. The main-path phases check its counts beside the samplers';
   2b. the K3 tie phase (k3_ties): K3 and K1 at every pair of tie
      coordinates (texel centres and edges, the border clamp's ends, the
      reflection padding's mirror lines and one texel past them) at each
@@ -333,7 +340,7 @@ from gangealing_torch.data.dataset import (
 from gangealing_torch.data.lmdb_io import LMDBReader, write_lmdb
 from gangealing_torch.data.prepare import SPAIR_PERMUTATIONS, center_crop
 from gangealing_torch.models.latent_learner import LatentLearner
-from gangealing_torch.models.layers import dtype_of
+from gangealing_torch.models.layers import Blur, dtype_of
 from gangealing_torch.models.classifier import Classifier
 from gangealing_torch.models.lpips import LPIPS, make_perceptual_loss
 from gangealing_torch.models import stn as stn_ops
@@ -350,6 +357,7 @@ from gangealing_torch.ops.grid_sample import (
 from gangealing_torch.ops.mipmap import (
     _build_pyramid, _mipmap_warp_fold, _rebuild_stack, _sample_pyramid,
     mipmap_levels, mipmap_sample, mipmap_warp)
+from gangealing_torch.ops import resample as resample_ops
 from gangealing_torch.ops.resample import interpolate_bilinear
 from gangealing_torch.ops.splat import splat2d, splat2d_pair
 from gangealing_torch.train import checkpoint as train_ckpt
@@ -372,6 +380,11 @@ from gangealing_torch.train import visuals as visuals_mod
 from gangealing_torch.train.visuals import (
     GANgealingWriter, animate_visuals, create_training_visuals)
 
+# The FIR kernel's counters. It runs in every STN, G and classifier call,
+# forward and backward, so a phase counts the samplers' and the splat's
+# launches apart from it (sampler_launches) and checks its counts on their
+# own.
+FIR_KERNELS = ("upfirdn2d", "upfirdn2d_dx")
 PADDINGS = ("border", "reflection", "zeros")
 KERNEL_TOL = 1e-5
 # F.grid_sample on the stack as a volume against K1, and torch.bmm of the
@@ -461,14 +474,35 @@ SKEWED = {"zoom-in": 0.25, "border pile": 2.0}
 # classifier step, and in cli.vis_correspondence's track K1 in every frame
 # of a stage, K2 once and K6 in the flip's splat and each chunk of
 # splat_batch frames; K2 and K4 in every synthetic step (the synthetic
-# generator's warps and the target's d/dgrid), with K1 and K3.
+# generator's warps and the target's d/dgrid), with K1 and K3; the FIR
+# kernel in every forward of an STN, G or the classifier, and its d/dx in
+# every step that trains one.
 MAIN_PATH_KERNELS = ("mipmap_sample", "grid_sample", "mipmap_sample_dcoords",
-                     "grid_sample_dgrid", "splat")
+                     "grid_sample_dgrid", "splat", *FIR_KERNELS)
 
 
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def sampler_launches(launches):
+    """The launches counted in ``launches`` but the FIR kernel's."""
+    return sum(v for k, v in launches.items() if k not in FIR_KERNELS)
+
+
+def fir_trained(launches):
+    """Whether ``launches`` holds FIR forwards and gradients: a phase that
+    trains an STN, G's latents or the classifier."""
+    return launches["upfirdn2d"] > 0 and launches["upfirdn2d_dx"] > 0
+
+
+def fir_forwards(launches, forwards=None):
+    """Whether ``launches`` holds FIR forwards, ``forwards`` of them if it
+    is given, and no gradient: a phase that only runs forwards."""
+    return (launches["upfirdn2d"] > 0 if forwards is None
+            else launches["upfirdn2d"] == forwards) \
+        and launches["upfirdn2d_dx"] == 0
 
 
 def call_ms(fn, iters=20, warmup=3):
@@ -877,6 +911,94 @@ def kernels_vs_plain(dev):
                                  "mipmap_sample": k1_ms}
 
 
+# The FIR kernel's smoke shapes: (N, C, side, gain, pad) of the congeal
+# cell's first STN blur (a ResBlock's conv path at 128 px) and of the cats
+# step's largest G blur (after the last transposed conv, 257 px).
+FIR_SHAPES = {"congeal 128^2 x 64 x 50": (50, 64, 128, 1, (2, 2)),
+              "cats G 257^2 x 128 x 40": (40, 128, 257, 4, (1, 1))}
+
+
+def fir_kernel(dev, card):
+    """The FIR kernel (upfirdn2d, forward and d/dx) at FIR_SHAPES against
+    the plain version (F.pad and ATen's depthwise conv; its autograd), held
+    to its bits and timed beside it, its bound and the library's one call
+    for the same function (a grouped F.conv2d with its padding; its
+    autograd); then a flagship congeal forward at 50 launches it once a
+    Blur. Returns {name: (ms, plain_ms, bound_ms, bound_by, library_ms)}
+    and the errors."""
+    taps = (1, 3, 3, 1)
+    rows, err = {}, 0.0
+    for what, (N, C, side, gain, pad) in FIR_SHAPES.items():
+        f = resample_ops.fir(taps, gain)
+        pads = (pad[0], pad[1], pad[0], pad[1])
+        gen = torch.Generator(dev).manual_seed(20)
+        x = torch.randn(N, C, side, side, device=dev, generator=gen)
+        k = resample_ops.fir_matrix(f).to(dev)
+        y = resample_ops.upfirdn2d_cuda(x, f, 1, 1, pads)
+        dy = torch.randn(y.shape, device=dev, generator=gen)
+        xg = x.clone().requires_grad_()
+        plain_y = resample_ops.upfirdn2d_plain(xg, k, 1, 1, pads)
+        (plain_dx,) = torch.autograd.grad(plain_y, xg, dy, retain_graph=True)
+        dx = resample_ops.upfirdn2d_grad(dy, f, 1, 1, pads, (side, side))
+        # the library's one call: the symmetric pad as the conv's padding
+        w = torch.flip(k, (0, 1))[None, None].expand(C, 1, *k.shape)
+        lib_y = F.conv2d(xg, w, padding=pad[0], groups=C)
+        (lib_dx,) = torch.autograd.grad(lib_y, xg, dy, retain_graph=True)
+        torch.cuda.synchronize()
+        e = max(scaled_err(y, plain_y.detach())[1],
+                scaled_err(dx, plain_dx)[1])
+        lib_e = max(scaled_err(lib_y.detach(), plain_y.detach())[1],
+                    scaled_err(lib_dx, plain_dx)[1])
+        check(lib_e <= KERNEL_TOL, f"the library's conv at {what}: "
+              f"{lib_e:.3e} from the plain version")
+        err = max(err, e)
+        check(e <= KERNEL_TOL, f"the FIR kernel at {what}: {e:.3e}")
+        apart = (int((y != plain_y).sum()), int((dx != plain_dx).sum()))
+        check(apart == (0, 0), f"the FIR kernel at {what}: {apart} values "
+              "apart from the plain version's bits (forward, d/dx)")
+        before = dict(LAUNCHES)
+        ms = device_ms(lambda: resample_ops.upfirdn2d_cuda(x, f, 1, 1, pads),
+                       name="upfirdn2d", per_call=1)
+        dx_ms = device_ms(lambda: resample_ops.upfirdn2d_grad(
+            dy, f, 1, 1, pads, (side, side)), name="upfirdn2d", per_call=1)
+        calls = {n: LAUNCHES[n] - before[n] for n in FIR_KERNELS}
+        plain_ms = device_ms(
+            lambda: resample_ops.upfirdn2d_plain(x, k, 1, 1, pads))
+        plain_dx_ms = device_ms(lambda: torch.autograd.grad(
+            plain_y, xg, dy, retain_graph=True))
+        lib_ms = device_ms(lambda: F.conv2d(x, w, padding=pad[0], groups=C))
+        lib_dx_ms = device_ms(lambda: torch.autograd.grad(
+            lib_y, xg, dy, retain_graph=True))
+        moved = nbytes(x, y)
+        ops = 2 * len(taps) ** 2 * y.numel()  # a multiply-add a tap
+        b = bound(moved, ops)
+        rows[f"upfirdn2d at {what}"] = (ms, plain_ms, *b, lib_ms)
+        rows[f"upfirdn2d_dx at {what}"] = (dx_ms, plain_dx_ms, *b, lib_dx_ms)
+        print(f"FIR {what}: max abs err (scaled) {e:.3e}; forward kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library conv "
+              f"{lib_ms:.4f} ms; d/dx kernel {dx_ms:.4f} ms, plain autograd "
+              f"{plain_dx_ms:.4f} ms, library conv's autograd "
+              f"{lib_dx_ms:.4f} ms; bound {b[0]:.4f} ms ({b[1]}, "
+              f"{moved / 1e9:.3f} GB); launches {calls} over the timed "
+              f"windows [{card}]")
+        del x, y, dy, xg, plain_y, plain_dx, dx, lib_y, lib_dx
+        torch.cuda.empty_cache()
+    model = ComposedSTN(FLAGSHIP, device=dev,
+                        generator=torch.Generator().manual_seed(21)).eval()
+    blurs = sum(isinstance(m, Blur) for m in model.modules())
+    images = torch.rand(50, 3, 256, 256, device=dev)
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        model(images)
+    torch.cuda.synchronize()
+    calls = {n: LAUNCHES[n] - before[n] for n in FIR_KERNELS}
+    print(f"FIR: a flagship congeal forward at 50 launched {calls} for "
+          f"{blurs} Blur modules")
+    check(calls == {"upfirdn2d": blurs, "upfirdn2d_dx": 0},
+          f"the congeal forward launched {calls}, expected {blurs} forwards")
+    return rows, err
+
+
 def make_checkpoint(path):
     """The flagship STN with the port's own seeded init, every parameter
     perturbed by 0.05 noise so that neither head is an identity warp, saved
@@ -1125,9 +1247,11 @@ def kernel_groups(prof, groups):
 
 CONV_GROUP = ("cuDNN convs and GEMMs", ("xmma", "gemm", "fft", "complex",
                                          "cudnn", "cutlass", "sm80_", "sm90_"))
+FIR_GROUP = ("the FIR kernel and depthwise convs", ("upfirdn2d",
+                                                   "conv_depthwise2d"))
 STEP_GROUPS = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
                ("K3 mipmap d/dcoords", ("mipmap_pyramid_dcoords",)),
-               ("depthwise FIR convs", ("conv_depthwise2d",)),
+               FIR_GROUP,
                CONV_GROUP,
                ("Adam and EMA (multi-tensor)", ("multi_tensor",)),
                ("reductions", ("reduce",)),
@@ -1152,7 +1276,7 @@ def where_time_goes(model, requests, card):
     ran (one stream, so kernels do not overlap)."""
     groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
               ("K2 grid_sample", ("grid_sample_kernel",)),
-              ("depthwise FIR convs", ("conv_depthwise2d",)),
+              FIR_GROUP,
               CONV_GROUP,
               ("pads", ("pad",)),
               ("gather and index", ("gather", "index")))
@@ -2011,8 +2135,9 @@ def train(dev, card, reals):
     per_step = dict(LAUNCHES)
     check(per_step["mipmap_sample"] == 2
           and per_step["mipmap_sample_dcoords"] == 2
-          and sum(per_step.values()) == 4,
-          f"one train step launched {per_step}, expected K1 2, K3 2")
+          and sampler_launches(per_step) == 4 and fir_trained(per_step),
+          f"one train step launched {per_step}, expected K1 2, K3 2 and "
+          f"the FIR kernel's forwards and gradients")
     check(all(math.isfinite(float(v)) for v in metrics.values()),
           f"train step metrics {metrics}")
     part = TRAIN_TIMED // SUBWINDOWS
@@ -2642,9 +2767,10 @@ def ar(dev, card):
     check(launches["mipmap_sample"] == 6 * batches
           and launches["grid_sample"] == batches
           and launches["splat"] == batches + 1
-          and sum(launches.values()) == 8 * batches + 1,
+          and sampler_launches(launches) == 8 * batches + 1
+          and fir_forwards(launches),
           f"the AR path launched {launches}, expected K1 6, K2 1 and K6 1 "
-          "a batch and 1 more K6 for the overlay")
+          "a batch and 1 more K6 for the overlay, and FIR forwards alone")
     print(f"AR kernel launches held against the plain versions: max abs err "
           f"K1 {errs['mipmap_sample']:.3e}, K2 {errs['grid_sample']:.3e}, K6 "
           f"{errs['splat']:.3e}; K2's inputs {tuple(k2[0][0][0].shape)} "
@@ -2670,7 +2796,7 @@ def ar(dev, card):
     groups = (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
               ("K2 grid_sample", ("grid_sample_kernel",)),
               ("K6 splat", ("splat_tiles",)),
-              ("depthwise FIR convs", ("conv_depthwise2d",)),
+              FIR_GROUP,
               CONV_GROUP,
               ("host-device copies", ("memcpy",)),
               ("pads", ("pad",)),
@@ -2776,7 +2902,7 @@ def eval_groups():
     return (("K1 mipmap_sample", ("mipmap_pyramid_fwd",)),
             ("K2 grid_sample", ("grid_sample_kernel",)),
             ("nearest-texel argmin", ("argmin",)),
-            ("depthwise FIR convs", ("conv_depthwise2d",)),
+            FIR_GROUP,
             CONV_GROUP,
             ("host-device copies", ("memcpy",)),
             ("pads", ("pad",)),
@@ -3072,9 +3198,9 @@ def evaluate(dev, card):
           f"congeal_dataset over {CONGEAL_IMAGES}, the five CLIs; launches "
           f"{launches}")
     check(launches["mipmap_sample"] > 0 and launches["grid_sample"] > 0
-          and launches["splat"] > 0
+          and launches["splat"] > 0 and fir_forwards(launches)
           and all(launches[k] == 0 for k in LAUNCHES if k not in (
-              "mipmap_sample", "grid_sample", "splat")),
+              "mipmap_sample", "grid_sample", "splat", "upfirdn2d")),
           f"the eval path launched {launches}")
     print(f"eval kernel launches held against the plain versions: max abs "
           f"err K1 {errs['mipmap_sample']:.3e} (20 launches of a PCK "
@@ -3196,9 +3322,12 @@ def loader(dev, card, reals):
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
     forwards = len(results)
+    blurs = sum(isinstance(m, Blur) for m in model.modules())
     check(launches["mipmap_sample"] == 2 * forwards
-          and sum(launches.values()) == 2 * forwards,
-          f"{forwards} forwards launched {launches}; expected K1 twice each")
+          and sampler_launches(launches) == 2 * forwards
+          and fir_forwards(launches, blurs * forwards),
+          f"{forwards} forwards launched {launches}; expected K1 twice each "
+          f"and the FIR kernel once for each of the {blurs} Blurs")
     for r in results:
         check_outputs(r, EVAL_BATCH)
     errs = {}
@@ -3467,8 +3596,10 @@ def cars_train(dev, card, d, batch, reals):
     vis_k1 = vis[0][3]
     check(launches["mipmap_sample"] == 2 * CARS_ITERS + vis_k1
           and launches["mipmap_sample_dcoords"] == 2 * CARS_ITERS
-          and sum(launches.values()) == 4 * CARS_ITERS + vis_k1,
-          "expected 2 K1 and 2 K3 launches per cars step")
+          and sampler_launches(launches) == 4 * CARS_ITERS + vis_k1
+          and fir_trained(launches),
+          f"expected 2 K1 and 2 K3 launches per cars step, and the FIR "
+          f"kernel's forwards and gradients: {launches}")
     run_dir = os.path.join(results, "cars")
     check_grids(run_dir, ["sample", "transformed_sample", "truncated_sample",
                           "mean_EMA_transformed_real_sample",
@@ -3561,8 +3692,10 @@ def classifier_phase(dev, card, d, state, generator, perceptual, pfn, ckpt,
           f"{[round(float(c), 3) for c in metrics['gt_counts']]}; launches "
           f"{launches}")
     check(launches["mipmap_sample"] == 2 * CLS_ITERS
-          and sum(launches.values()) == 2 * CLS_ITERS,
-          "expected 2 K1 launches per classifier step")
+          and sampler_launches(launches) == 2 * CLS_ITERS
+          and fir_trained(launches),
+          f"expected 2 K1 launches per classifier step, and the FIR "
+          f"kernel's forwards and gradients: {launches}")
     path = os.path.join(results, "cars_cls", "checkpoints", "classifier.pt")
     model, mcfg, loaded = load_stn(path, supersize=256, device=dev,
                                    load_classifier=True)
@@ -3694,9 +3827,11 @@ def cluster_ar(dev, card, d, path):
     check(launches["mipmap_sample"] == 4 * batches
           and launches["grid_sample"] == batches
           and launches["splat"] == batches + CARS_HEADS
-          and sum(launches.values()) == 6 * batches + CARS_HEADS,
+          and sampler_launches(launches) == 6 * batches + CARS_HEADS
+          and fir_forwards(launches),
           f"the AR path with the classifier launched {launches}, expected "
-          "K1 4, K2 1 and K6 1 a batch and K6 once for each average image")
+          "K1 4, K2 1 and K6 1 a batch and K6 once for each average image, "
+          "and FIR forwards alone")
     print(f"AR with the classifier: {rate:.1f} frames/s over "
           f"{2 * AR_FRAMES} frames at batch {AR_BATCH} in "
           f"{sum(seconds):.2f} s "
@@ -3955,8 +4090,10 @@ def bf16_cli(argv, results, exp, iters, dev):
           f"{state.cfg.compute_dtype}")
     check(launches["mipmap_sample"] == 2 * iters
           and launches["mipmap_sample_dcoords"] == 2 * iters
-          and sum(launches.values()) == 4 * iters,
-          f"{exp}: expected 2 K1 and 2 K3 launches per bfloat16 step")
+          and sampler_launches(launches) == 4 * iters
+          and fir_trained(launches),
+          f"{exp}: expected 2 K1 and 2 K3 launches per bfloat16 step, and "
+          f"the FIR kernel's forwards and gradients: {launches}")
     run_dir = os.path.join(results, exp)
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         scalars = [json.loads(line) for line in f if line.strip()]
@@ -4139,9 +4276,12 @@ def bf16_congeal(dev, card, f32_rate):
                    for i in range(part)],
         lambda r: check_outputs(r, b))
     launches = dict(LAUNCHES)
+    blurs = sum(isinstance(m, Blur) for m in bf16.modules())
     check(launches["mipmap_sample"] == 2 * (TIMED[b] + 2)
-          and sum(launches.values()) == launches["mipmap_sample"],
-          f"the bfloat16 congeal forwards launched {launches}")
+          and sampler_launches(launches) == launches["mipmap_sample"]
+          and fir_forwards(launches, blurs * (TIMED[b] + 2)),
+          f"the bfloat16 congeal forwards launched {launches}, expected "
+          f"the FIR kernel once for each of the {blurs} Blurs a forward")
     rate = b * TIMED[b] / (sum(ms) / 1e3)
     print(f"bfloat16 congeal batch {b}: {rate:.1f} imgs/s over {TIMED[b]} "
           f"requests in {sum(ms) / 1e3:.2f} s (in {SUBWINDOWS} parts: "
@@ -5318,8 +5458,10 @@ def demo_launches(heads):
 
 def check_no_image_grads(what):
     """K5a, K5b and K6 did not launch: the templates, the drawn z and the
-    source images need no gradient, and nothing splats."""
-    others = {k: LAUNCHES[k] for k in LAUNCHES if k not in SYN_KERNELS}
+    source images need no gradient, and nothing splats. (The FIR kernel
+    runs in the STN that the steps train.)"""
+    others = {k: LAUNCHES[k] for k in LAUNCHES
+              if k not in SYN_KERNELS + FIR_KERNELS}
     check(not any(others.values()), f"{what} launched {others}")
 
 
@@ -5644,8 +5786,10 @@ def scan_run(argv, name, k, d, flush, card, held=True):
           f"{name}: cli.train ran blocks {clock['blocks']}")
     check(launches["mipmap_sample"] == 2 * SCAN_ITERS
           and launches["mipmap_sample_dcoords"] == 2 * SCAN_ITERS
-          and sum(launches.values()) == 4 * SCAN_ITERS,
-          f"{name}: expected 2 K1 and 2 K3 launches a step, {launches}")
+          and sampler_launches(launches) == 4 * SCAN_ITERS
+          and fir_trained(launches),
+          f"{name}: expected 2 K1 and 2 K3 launches a step, and the FIR "
+          f"kernel's forwards and gradients, {launches}")
     run_dir = os.path.join(d, "results", name)
     ckpts = os.listdir(os.path.join(run_dir, "checkpoints"))
     check(ckpts == [f"{str(SCAN_ITERS + 1).zfill(7)}.pt"],
@@ -5780,6 +5924,7 @@ def main():
     reals_dir = tempfile.mkdtemp()
     reals = real_lmdb(os.path.join(reals_dir, "reals"))
     errs, times, bounds, library = kernels_vs_plain(dev)
+    fir_rows, fir_err = fir_kernel(dev, card)
     tie_errs = k3_ties(dev)
     rates, peak_gib, launches, path_err, k1_path = serve(dev, card)
     errs = {k: max(errs[k], path_err[k]) for k in errs}
@@ -5892,9 +6037,16 @@ def main():
         check(launches[k] == 0 and check_launches[k] > 0,
               f"{k}: {launches[k]} launches on the main path, "
               f"{check_launches[k]} in its check; expected 0 and more")
+    for name, row in fir_rows.items():
+        k = name.split(" at ")[0]
+        print(f"{name}, per call: kernel {row[0]:.4f} ms, plain "
+              f"{row[1]:.4f} ms, library conv {row[4]:.4f} ms, bound "
+              f"{row[2]:.4f} ms ({row[3]}); {k} launched {launches[k]} times "
+              f"on the main path, {check_launches[k]} in the side checks "
+              f"[{card}]")
     for k, (ms, _, bound_ms, *_) in list(measured.items()) + [
             (f"{k} at the cars step's shapes", v)
-            for k, v in cars_rows.items()]:
+            for k, v in cars_rows.items()] + list(fir_rows.items()):
         check(ms >= bound_ms, f"{k} took {ms:.4f} ms, under its bound of "
               f"{bound_ms:.4f} ms: a timing fault")
     print(f"torch.profiler: {WINDOWS['taken']} windows, "
@@ -5906,7 +6058,13 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "check_launches": check_launches[name],
          "max_abs_err": errs[name], **dict(zip(keys, measured[name]))}
-        for name, (src, tpu) in KERNEL_INFO.items()]}))
+        for name, (src, tpu) in KERNEL_INFO.items()]
+        + [{"name": name, "route": "cuda",
+            "source": "gangealing_torch/csrc/upfirdn2d.cu", "replaces": None,
+            "launches": launches[name.split(" at ")[0]],
+            "check_launches": check_launches[name.split(" at ")[0]],
+            "max_abs_err": fir_err, **dict(zip(keys, row))}
+           for name, row in fir_rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

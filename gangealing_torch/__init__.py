@@ -5,7 +5,8 @@ It serves the flagship ComposedSTN congeal forward, trains GANgealing
 (``python -m gangealing_torch.cli.mixed_reality``) on an NVIDIA H100, or
 over ranks, one a card (``torchrun``; ``parallel/``),
 through CUDA kernels written by hand (``csrc/``): the mipmap and bilinear
-samplers, forward and backward, and the Gaussian splat. On CPU tensors
+samplers, forward and backward, the Gaussian splat, and the FIR resampler
+(``upfirdn2d``), forward and backward. On CPU tensors
 every op runs its plain PyTorch version, which the tests hold against the
 JAX package; the port imports nothing of that package.
 

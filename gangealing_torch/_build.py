@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"grid_sample": 0, "grid_sample_dgrid": 0, "grid_sample_dimg": 0,
             "mipmap_sample": 0, "mipmap_sample_dcoords": 0,
-            "mipmap_sample_dpyramid": 0, "splat": 0}
+            "mipmap_sample_dpyramid": 0, "splat": 0, "upfirdn2d": 0,
+            "upfirdn2d_dx": 0}
 PADDING_CODES = {"border": 0, "reflection": 1, "zeros": 2}
 
 
@@ -115,18 +116,24 @@ def load_kernels() -> ctypes.CDLL:
     lib.gg_mipmap_dpyramid.restype = i32
     lib.gg_splat_fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     lib.gg_splat_fwd.restype = i32
+    lib.gg_upfirdn2d.argtypes = [ptr] * 2 + [i32] * 10 + [ptr] + [i32] * 2 \
+        + [ptr]
+    lib.gg_upfirdn2d.restype = i32
     return lib
 
 
 def check_operand(name: str, t: torch.Tensor, ndim: int,
-                  device: torch.device, channels_last: bool = False) -> None:
-    """Raise unless ``t`` is what a kernel takes: a contiguous f32 CUDA
-    tensor of ``ndim`` dimensions on ``device`` (or, with ``channels_last``,
-    one contiguous in that memory format)."""
+                  device: torch.device, channels_last: bool = False,
+                  dtypes: tuple = (torch.float32,)) -> None:
+    """Raise unless ``t`` is what a kernel takes: a contiguous CUDA tensor
+    of a dtype in ``dtypes`` (float32 unless given) and ``ndim`` dimensions
+    on ``device`` (or, with ``channels_last``, one contiguous in that memory
+    format)."""
     if t.device.type != "cuda" or t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be {names}, got {t.dtype}")
     if t.ndim != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
     if not (t.is_contiguous() or channels_last and t.is_contiguous(

@@ -5,8 +5,8 @@ EqualConv2d, Blur, FusedLeakyReLU, ConvLayer and ResBlock, and the
 generator's pixel_norm, ModulatedConv2d, StyledConv (with noise injection),
 ToRGB and ConstantInput. Module and parameter names follow the reference's
 torch modules, so a state_dict holds the same flat keys as the JAX
-package's parameter dicts. Derived buffers (the blur FIR taps) are not
-persistent.
+package's parameter dicts. The blur FIR taps are host constants
+(``ops/resample.py::Fir``), not buffers.
 
 Every constructor takes the ``device`` to build on and the
 ``torch.Generator`` its random weights are drawn from. Parameters are
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gangealing_torch.ops.resample import (
-    blur, fused_leaky_relu, make_kernel, rounded_like, upfirdn2d, upsample2x)
+    blur, fir, fused_leaky_relu, rounded_like, upfirdn2d, upsample2x)
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -100,16 +100,15 @@ class EqualConv2d(nn.Module):
 
 
 class Blur(nn.Module):
-    """FIR blur (networks.py:70); its taps are a derived buffer."""
+    """FIR blur (networks.py:70)."""
 
-    def __init__(self, kernel, pad, *, device=None):
+    def __init__(self, kernel, pad):
         super().__init__()
-        self.register_buffer("kernel", make_kernel(kernel, device),
-                             persistent=False)
+        self.fir = fir(kernel)
         self.pad = pad
 
     def forward(self, x):
-        return upfirdn2d(x, self.kernel, pad=self.pad)
+        return upfirdn2d(x, self.fir, pad=self.pad)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -133,8 +132,7 @@ class ConvLayer(nn.Sequential):
         layers = []
         if downsample:
             p = (len(BLUR_KERNEL) - 2) + (kernel_size - 1)
-            layers.append(Blur(BLUR_KERNEL, pad=((p + 1) // 2, p // 2),
-                               device=device))
+            layers.append(Blur(BLUR_KERNEL, pad=((p + 1) // 2, p // 2)))
             stride, padding = 2, 0
         else:
             stride, padding = 1, kernel_size // 2

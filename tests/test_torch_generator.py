@@ -54,8 +54,8 @@ def test_upfirdn2d_upsampling(factor, pad):
     x = np.random.RandomState(0).randn(2, 3, 8, 8).astype(np.float32)
     k = jrs.make_kernel([1, 3, 3, 1]) * factor ** 2
     ref = jrs.upfirdn2d(jnp.asarray(x), k, up=factor, pad=pad)
-    out = trs.upfirdn2d(torch.from_numpy(x), torch.from_numpy(np.array(k)),
-                        up=factor, pad=pad)
+    out = trs.upfirdn2d(torch.from_numpy(x),
+                        trs.fir([1, 3, 3, 1], factor ** 2), up=factor, pad=pad)
     _close(out, ref, 1e-5)
     _close(trs.upsample2x(torch.from_numpy(x), [1, 3, 3, 1]),
            jrs.upsample2x(jnp.asarray(x), [1, 3, 3, 1]), 1e-5)

@@ -10,12 +10,19 @@ against its plain version on the same CUDA tensors (atol 1e-5), each
 backward kernel against the plain version's autograd (atol 1e-5 scaled by
 max(1, max|ref|): K5a and K5b gather each texel's sum in a fixed order,
 the same from run to run but not the CPU's), three launches of K5a equal
-to the bit, K5a and K5b on images of 256 and 512 px, and the launch
-counts:
+to the bit, K5a and K5b on images of 256 and 512 px, the launch counts,
+and the FIR kernel (csrc/upfirdn2d.cu) at the cells' call shapes, its
+gradient and gradient of gradient against the plain version in float64
+and the JAX package's upfirdn2d and its VJP on the CPU (1e-5 scaled), in
+bfloat16, float16 and float64 against ATen's depthwise conv in that dtype
+(a unit in the last place), one launch a call, and no depthwise conv wider
+than 3 channels in a congeal forward (float32 and bfloat16) or a train
+step:
 
     python -m pytest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -25,14 +32,23 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from gangealing_torch import LAUNCHES
+from gangealing_torch.models import latent_learner, layers, lpips, stn
+from gangealing_torch.models import stylegan2
+from gangealing_torch.models.layers import BLUR_KERNEL
 from gangealing_torch.ops import grid_sample as tgs
 from gangealing_torch.ops import mipmap as tmm
+from gangealing_torch.ops import resample
+from gangealing_torch.train import state
 
 jmm = import_module("gangealing_tpu.ops.mipmap")
 jpgs = import_module("gangealing_tpu.ops.pallas_grid_sample")
+jrs = import_module("gangealing_tpu.ops.resample")
 
 PADDINGS = ["border", "reflection", "zeros"]
 REPO = Path(__file__).resolve().parent.parent
@@ -163,6 +179,9 @@ def test_kernel_entry_points_refuse_cpu_tensors():
         tmm.mipmap_sample_dpyramid(tmm._build_pyramid(x, 4).shape, g,
                                    g[..., 0].contiguous(),
                                    torch.zeros(2, 3, 16, 16))
+    with pytest.raises(ValueError, match="must be on"):
+        resample.upfirdn2d_cuda(x, resample.fir(BLUR_KERNEL), 1, 1,
+                                (2, 2, 2, 2))
     assert LAUNCHES == before
 
 
@@ -259,6 +278,12 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tmm.mipmap_sample(pyramid._replace(
             coarse=torch.zeros(1, pyramid.coarse.shape[1] + 1,
                                device=cuda)[:, 1:]), g, levels)
+    f = resample.fir(BLUR_KERNEL)
+    with pytest.raises(ValueError, match="bfloat16"):
+        resample.upfirdn2d_cuda(x.int(), f, 1, 1, (2, 2, 2, 2))
+    with pytest.raises(ValueError, match="taps"):
+        resample.upfirdn2d_cuda(x, resample.fir((1, 2, 3, 2, 1)), 1, 1,
+                                (2, 2, 2, 2))
 
 
 def _grad_inputs(seed, cuda, N, C, H, out, kind):
@@ -484,3 +509,275 @@ def test_k5a_and_k5b_take_large_images(cuda, kind, size):
     ref = torch.autograd.grad(tgs.grid_sample(x, grid), x, cot)[0]
     ours = tgs.grid_sample_dimg(grid, cot, tuple(x.shape))
     assert _scaled_err(ours, ref) <= 1e-5
+
+
+# The FIR kernel (csrc/upfirdn2d.cu) at the call shapes of the benchmark's
+# cells: (taps' gain, up, down, pad, channels, side). The STN encoders'
+# Blur (pad (2, 2) in a ResBlock's conv path, (1, 1) in its skip) from 128
+# px at 64 channels down to 8 px at 512; G's blur after each transposed
+# conv (gain 4, pad (1, 1), odd sides 9 to 257 at its 512 to 128
+# channels); ToRGB's upsample2x (up 2, 3 channels) and its gradient (down 2).
+FIR_CALLS = {
+    "stn_128_64": (1, 1, 1, (2, 2), 64, 128),
+    "stn_skip_128_64": (1, 1, 1, (1, 1), 64, 128),
+    "stn_64_128": (1, 1, 1, (2, 2), 128, 64),
+    "stn_32_512": (1, 1, 1, (2, 2), 512, 32),
+    "stn_16_512": (1, 1, 1, (2, 2), 512, 16),
+    "stn_skip_8_512": (1, 1, 1, (1, 1), 512, 8),
+    "g_9_512": (4, 1, 1, (1, 1), 512, 9),
+    "g_65_512": (4, 1, 1, (1, 1), 512, 65),
+    "g_129_256": (4, 1, 1, (1, 1), 256, 129),
+    "g_257_128": (4, 1, 1, (1, 1), 128, 257),
+    "upsample2x_128": (4, 2, 1, (2, 1), 3, 128),
+    "upsample2x_4": (4, 2, 1, (2, 1), 3, 4),
+    "upsample2x_grad_256": (4, 1, 2, (1, 1), 3, 256),
+}
+FIR_BACKWARD = ("stn_32_512", "g_129_256", "stn_skip_8_512", "upsample2x_128")
+
+
+# the cases of the FIR kernel in bfloat16, float16 and float64
+FIR_DTYPE_CALLS = ("stn_128_64", "stn_skip_8_512", "g_65_512",
+                   "upsample2x_128", "upsample2x_grad_256")
+
+
+def _fir_case(cuda, call, seed=13):
+    gain, up, down, pad, C, side = FIR_CALLS[call]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, C, side, side, generator=g)
+    return resample.fir(BLUR_KERNEL, gain), up, down, pad, x
+
+
+def _pads(pad):
+    return (pad[0], pad[1], pad[0], pad[1])
+
+
+def _fir_plain(f, up, down, pad, x):
+    """The plain version in float64 on the CPU."""
+    return resample.upfirdn2d_plain(x.double().cpu(),
+                                    resample.fir_matrix(f).double(), up, down,
+                                    _pads(pad))
+
+
+def _fir_card_plain(f, up, down, pad, x):
+    """The plain version on the card: F.pad and ATen's depthwise conv."""
+    return resample.upfirdn2d_plain(x, resample.fir_matrix(f).to(x.device),
+                                    up, down, _pads(pad))
+
+
+def _fir_jax(f, up, down, pad, x, dy=None):
+    """The JAX package's upfirdn2d of the CPU tensor ``x`` on the CPU, or,
+    given ``dy``, its VJP: the gradient with respect to ``x``."""
+    k = jrs.make_kernel(f.k) * f.gain
+
+    def fn(t):
+        return jrs.upfirdn2d(t, k, up=up, down=down, pad=pad)
+    if dy is None:
+        return torch.from_numpy(np.array(fn(jnp.asarray(x.detach().numpy()))))
+    _, vjp = jax.vjp(fn, jnp.asarray(x.detach().numpy()))
+    (dx,) = vjp(jnp.asarray(dy.detach().numpy()))
+    return torch.from_numpy(np.array(dx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", sorted(FIR_CALLS))
+def test_fir_kernel_matches_plain(cuda, call):
+    """The kernel gives the bits of the plain version on the card, and is
+    within 1e-5 (scaled) of the float64 function and of the JAX package's
+    upfirdn2d."""
+    f, up, down, pad, x = _fir_case(cuda, call)
+    xc = x.to(cuda)
+    before = dict(LAUNCHES)
+    out = resample.upfirdn2d(xc, f, up=up, down=down, pad=pad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["upfirdn2d"] == before["upfirdn2d"] + 1
+    assert torch.equal(out, _fir_card_plain(f, up, down, pad, xc))
+    assert _scaled_err(out.double().cpu(), _fir_plain(f, up, down, pad, x)) \
+        <= 1e-5
+    assert _scaled_err(out.cpu(), _fir_jax(f, up, down, pad, x)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", FIR_BACKWARD)
+def test_fir_backward_and_double_backward_match_plain(cuda, call):
+    """The kernel's gradient against autograd of the plain version on the
+    card (to the bit), in float64 and against the JAX package's VJP, and
+    the gradient of that gradient with respect to the output's gradient,
+    which is the forward again."""
+    f, up, down, pad, x = _fir_case(cuda, call, 14)
+    ref_x = x.double().requires_grad_()
+    ref_y = _fir_plain(f, up, down, pad, ref_x)
+    gen = torch.Generator().manual_seed(15)
+    dy = torch.randn(ref_y.shape, generator=gen)
+    w = torch.randn(x.shape, generator=gen)
+    (ref_dx,) = torch.autograd.grad(ref_y, ref_x, dy.double())
+    xc = x.to(cuda).requires_grad_()
+    dyc = dy.to(cuda).requires_grad_()
+    before = dict(LAUNCHES)
+    y = resample.upfirdn2d(xc, f, up=up, down=down, pad=pad)
+    (dx,) = torch.autograd.grad(y, xc, dyc, create_graph=True)
+    (ddy,) = torch.autograd.grad(dx, dyc, w.to(cuda))
+    torch.cuda.synchronize()
+    plain_x = x.to(cuda).requires_grad_()
+    (plain_dx,) = torch.autograd.grad(
+        _fir_card_plain(f, up, down, pad, plain_x), plain_x, dy.to(cuda))
+    assert torch.equal(dx.detach(), plain_dx)
+    assert _scaled_err(dx.detach().double().cpu(), ref_dx) <= 1e-5
+    assert _scaled_err(dx.detach().cpu(),
+                       _fir_jax(f, up, down, pad, x, dy)) <= 1e-5
+    assert _scaled_err(ddy.double().cpu(), _fir_plain(f, up, down, pad, w)) \
+        <= 1e-5
+    assert LAUNCHES["upfirdn2d"] == before["upfirdn2d"] + 1
+    assert LAUNCHES["upfirdn2d_dx"] == before["upfirdn2d_dx"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float64])
+@pytest.mark.parametrize("call", FIR_DTYPE_CALLS)
+def test_fir_kernel_in_other_dtypes(cuda, call, dtype):
+    """In bfloat16 and float16 (summed in float) the kernel's output and
+    gradient are in the input's dtype and within a unit in the last place
+    of ATen's depthwise conv and its autograd in that dtype, and within
+    half a unit of the float64 function of the same inputs; in float64
+    within 1e-12 (scaled) of both."""
+    f, up, down, pad, x = _fir_case(cuda, call, 16)
+    x = x.to(dtype)
+    xc = x.to(cuda).requires_grad_()
+    before = dict(LAUNCHES)
+    y = resample.upfirdn2d(xc, f, up=up, down=down, pad=pad)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(17))
+    dy = dy.to(dtype)
+    (dx,) = torch.autograd.grad(y, xc, dy.to(cuda))
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+            if LAUNCHES[k] != before[k]} == {"upfirdn2d": 1, "upfirdn2d_dx": 1}
+    assert y.dtype == dx.dtype == dtype
+    plain_x = x.to(cuda).requires_grad_()
+    plain_y = _fir_card_plain(f, up, down, pad, plain_x)
+    (plain_dx,) = torch.autograd.grad(plain_y, plain_x, dy.to(cuda))
+    ref_x = x.double().requires_grad_()
+    ref_y = _fir_plain(f, up, down, pad, ref_x)
+    (ref_dx,) = torch.autograd.grad(ref_y, ref_x, dy.double())
+    eps = torch.finfo(dtype).eps
+    for ours, aten, exact in ((y, plain_y, ref_y), (dx, plain_dx, ref_dx)):
+        ours = ours.detach().double().cpu()
+        aten, exact = aten.detach().double().cpu(), exact.detach()
+        scale = max(1.0, float(exact.abs().max()))
+        if dtype == torch.float64:
+            assert _scaled_err(ours, aten) <= 1e-12
+            assert _scaled_err(ours, exact) <= 1e-12
+            continue
+        assert bool(((ours - aten).abs()
+                     <= eps * aten.abs() + 1e-5 * scale).all())
+        assert bool(((ours - exact).abs()
+                     <= eps / 2 * exact.abs() + 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+def test_fir_launches_once_a_call(cuda):
+    """One kernel launch a forward of each caller, one a backward; a
+    bfloat16 tensor launches it too, and its output is bfloat16."""
+    x = torch.randn(2, 8, 16, 16, device=cuda, requires_grad=True)
+    blur_layer = layers.Blur(BLUR_KERNEL, pad=(2, 2))
+    callers = {"Blur": blur_layer,
+               "blur": lambda t: resample.blur(t, BLUR_KERNEL, (1, 1), 2),
+               "upsample2x": lambda t: resample.upsample2x(t, BLUR_KERNEL)}
+    for name, fn in callers.items():
+        before = dict(LAUNCHES)
+        y = fn(x)
+        assert LAUNCHES["upfirdn2d"] - before["upfirdn2d"] == 1, name
+        y.backward(torch.ones_like(y))
+        torch.cuda.synchronize()
+        after = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                 if LAUNCHES[k] != before[k]}
+        assert after == {"upfirdn2d": 1, "upfirdn2d_dx": 1}, name
+    before = dict(LAUNCHES)
+    xb = x.detach().bfloat16()
+    out = blur_layer(xb)
+    assert out.dtype == torch.bfloat16
+    assert LAUNCHES["upfirdn2d"] == before["upfirdn2d"] + 1
+    ref = resample.upfirdn2d(xb.cpu(), blur_layer.fir, pad=(2, 2))
+    assert _scaled_err(out.float().cpu(), ref.float()) <= 1e-2
+
+
+class _GroupedConvs(TorchDispatchMode):
+    """Records the channels of every grouped (depthwise) convolution and
+    convolution backward dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.groups = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default and args[8] > 1:
+            self.groups.append(args[8])
+        if func is torch.ops.aten.convolution_backward.default \
+                and args[9] > 1:
+            self.groups.append(args[9])
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+def test_congeal_and_train_step_run_no_wide_depthwise_conv(cuda,
+                                                           monkeypatch):
+    """A flagship congeal forward, in float32 and in bfloat16, and a train
+    step at 512 channels run every FIR through the kernel, each on an
+    NCHW-contiguous input as it comes (no copy): the only depthwise convs
+    left are the 3-channel resamplers with reflection padding
+    (bilinear_downsample and the pyramid's blur)."""
+    strided = []
+    card_path = resample.upfirdn2d_card
+
+    def spy(x, *args):
+        strided.append(not x.is_contiguous())
+        return card_path(x, *args)
+    monkeypatch.setattr(resample, "upfirdn2d_card", spy)
+    gen = torch.Generator().manual_seed(0)
+    t_cfg = stn.ComposedSTNConfig(transforms=("similarity", "flow"),
+                                  flow_size=128, supersize=256,
+                                  channel_multiplier=0.5)
+    model = stn.ComposedSTN(t_cfg, device=cuda, generator=gen).eval()
+    images = torch.rand(2, 3, 256, 256, generator=gen).to(cuda)
+    before = dict(LAUNCHES)
+    with torch.no_grad(), _GroupedConvs() as mode:
+        model(images)
+    assert set(mode.groups) <= {3}, mode.groups
+    assert LAUNCHES["upfirdn2d"] > before["upfirdn2d"]
+    bf16 = stn.ComposedSTN(dataclasses.replace(t_cfg,
+                                               compute_dtype="bfloat16"),
+                           device=cuda, generator=gen).eval()
+    before = dict(LAUNCHES)
+    with torch.no_grad(), _GroupedConvs() as mode:
+        bf16(images)
+    assert set(mode.groups) <= {3}, mode.groups
+    assert LAUNCHES["upfirdn2d"] > before["upfirdn2d"]
+
+    cfg = state.TrainConfig(
+        g=stylegan2.GeneratorConfig(size=64, style_dim=64, n_mlp=2,
+                                    channel_multiplier=2),
+        t=stn.ComposedSTNConfig(transforms=("similarity", "flow"),
+                                flow_size=64, supersize=64,
+                                channel_multiplier=0.5, flow_downsample=4),
+        ll=latent_learner.LatentLearnerConfig(n_comps=1, inject_index=5,
+                                              n_latent=10, style_dim=64),
+        batch=2, tv_weight=1000.0, flow_identity_weight=1.0, anneal_psi=100,
+        period=50, loss_fn="vgg_ssl")
+    generator = stylegan2.Generator(cfg.g, device=cuda, generator=gen)
+    generator.requires_grad_(False)
+    st = state.TrainState(
+        cfg, stn.ComposedSTN(cfg.t, device=cuda, generator=gen),
+        latent_learner.LatentLearner(cfg.ll, device=cuda, generator=gen))
+    vgg = lpips.LPIPS(device=cuda, generator=gen).eval().requires_grad_(False)
+    loss = lpips.make_perceptual_loss("vgg_ssl")
+    z = torch.randn(2, 64, generator=gen).to(cuda)
+    noise = tuple([torch.randn(s, generator=gen).to(cuda)
+                   for s in cfg.g.noise_shapes(2)] for _ in range(2))
+    before = dict(LAUNCHES)
+    with _GroupedConvs() as mode:
+        state.train_step(st, generator, lambda a, b: loss(vgg, a, b), z, 0.6,
+                         1e-3, 1e-2, noise=noise)
+        torch.cuda.synchronize()
+    assert set(mode.groups) <= {3}, mode.groups
+    assert LAUNCHES["upfirdn2d"] > before["upfirdn2d"]
+    assert LAUNCHES["upfirdn2d_dx"] > before["upfirdn2d_dx"]
+    assert strided and not any(strided)
