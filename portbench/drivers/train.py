@@ -20,6 +20,7 @@ perceptual term, the first gradient (read back from Adam's first moment)
 and the change of the parameters and of the EMA over the checked steps.
 """
 
+import contextlib
 import math
 import statistics
 import time
@@ -233,11 +234,23 @@ class TrainCell:
         if device.type == "cuda":
             _build.load_kernels()
         parts["kernel library"] = time.perf_counter() - t0
+        self.build_state(seed, parts, compute_dtype)
         t0 = time.perf_counter()
-        self.states = seeded_states(cfg, seed, device)
+        self.initial = {k: v.detach().clone()
+                        for k, v in learned(self.state).items()}
+        self.passes = [self.checked_pass()]
+        self._sync()
+        parts["checked steps (warm-up)"] = time.perf_counter() - t0
+
+    def build_state(self, seed, parts, compute_dtype):
+        """The seeded weights, the frozen generator and perceptual model,
+        the training state and the inputs."""
+        t0 = time.perf_counter()
+        self.states = seeded_states(self.cfg, seed, self.device)
         self._sync()
         parts["seeded weights"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        cfg, traffic, device = self.cfg, self.traffic, self.device
         pcfg = program_config(cfg, self.batch, compute_dtype)
         self.generator = Generator(pcfg.g, device=device)
         self.generator.load_state_dict(self.states["g"], strict=True)
@@ -256,12 +269,6 @@ class TrainCell:
         self.start = traffic["start_iter"]
         self._sync()
         parts["the port's modules"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.initial = {k: v.detach().clone()
-                        for k, v in learned(self.state).items()}
-        self.passes = [self.checked_pass()]
-        self._sync()
-        parts["checked steps (warm-up)"] = time.perf_counter() - t0
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -270,12 +277,16 @@ class TrainCell:
     def run_unit(self):
         """One iteration of the loop body; returns its metrics."""
         self.i += 1
-        z, noise, psi, lr_t, lr_ll = self.inputs(self.i)
+        z, noise, psi, lr_t, lr_ll = self.unit_inputs(self.i)
         metrics = train_block(self.state, self.generator, self.perceptual_fn,
                               [z], [noise], [psi], [lr_t], [lr_ll])
         if self.i % self.log_every == 0:  # the loop's host read
             torch.stack([metrics[k] for k in ("p", "tv", "f")]).tolist()
         return metrics
+
+    def unit_inputs(self, i):
+        """The inputs of iteration ``i`` that this trainer steps on."""
+        return self.inputs(i)
 
     def checked_pass(self):
         """The first ``checked_steps`` iterations from the traffic's start
@@ -343,8 +354,11 @@ class TrainCell:
     def reference(self, count=False):
         """The reference's readings over the checked steps, as the
         program's: (loss terms of each step, first gradients, learned
-        tensors before and after, counters)."""
-        ref = ReferenceTrainer(self.cfg, self.states, self.device)
+        tensors before and after, counters). The traffic's
+        ``reference_chunk`` (default: the whole batch) is the images the
+        reference takes at a time; the counters are of its first chunk."""
+        ref = ReferenceTrainer(self.cfg, self.states, self.device,
+                               chunk=self.traffic.get("reference_chunk"))
         before = {k: v.detach().clone() for k, v in ref.learned().items()}
         terms, grads, counters = [], None, {}
         with stated_precision():
@@ -360,17 +374,23 @@ class TrainCell:
         return terms, grads, before, after, counters
 
     def _counted(self, ref, args):
-        """A reference step under the FLOP counter, its warps recorded for
-        the sampler launches' bytes (traced runs only: the counter's
-        import is left out of the other runs' set-up)."""
+        """A reference step with its first chunk under the FLOP counter and
+        its warps recorded for the sampler launches' bytes (traced runs
+        only: the counter's import is left out of the other runs'
+        set-up)."""
         from torch.utils.flop_counter import FlopCounterMode
         flops = FlopCounterMode(display=False)
-        ref_mipmap.RECORDER = warps = []
-        try:
-            with flops:
-                terms, grads = ref.step(*args)
-        finally:
-            ref_mipmap.RECORDER = None
+        warps = []
+
+        @contextlib.contextmanager
+        def counted():
+            ref_mipmap.RECORDER = warps
+            try:
+                with flops:
+                    yield
+            finally:
+                ref_mipmap.RECORDER = None
+        terms, grads = ref.step(*args, around_first=counted)
         return terms, grads, {"model_flops_per_unit": flops.get_total_flops(),
                               **sampler_least_s(warps, backward=True)}
 

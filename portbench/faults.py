@@ -10,7 +10,8 @@ import contextlib
 
 import torch
 
-from portbench.drivers import congeal, train
+from gangealing_torch.train import state as train_state
+from portbench.drivers import congeal, train, train_ranks
 
 
 @contextlib.contextmanager
@@ -111,8 +112,25 @@ def altered_output():
     return _stn_fault("altered")
 
 
+def unreduced_grads():
+    """The exchange between cards left out: each rank steps on the
+    gradients of its own share, the all-reduce skipped."""
+    return _patched(train_state, "all_reduce_grads", lambda *modules: None)
+
+
+@contextlib.contextmanager
+def _on_every_rank(name, fault):
+    """``fault`` here and, by name, in the ranks this process spawns."""
+    with _patched(train_ranks, "FAULT", name), fault():
+        yield
+
+
 FAULTS = {"train": {"unchanged_state": unchanged_state,
                     "half_batch": half_batch,
                     "altered_update": altered_update},
           "congeal": {"half_batch": half_batch_served,
                       "altered_output": altered_output}}
+FAULTS["train_ranks"] = {
+    name: (lambda name=name, fault=fault: _on_every_rank(name, fault))
+    for name, fault in dict(FAULTS["train"],
+                            unreduced_grads=unreduced_grads).items()}

@@ -84,11 +84,15 @@ def build_modules(cfg, device):
 
 class ReferenceTrainer:
     """The modules of a configuration loaded from ``states`` (a state_dict
-    each for "g", "t", "ll" and "lpips"), their two Adams and the EMA."""
+    each for "g", "t", "ll" and "lpips"), their two Adams and the EMA.
+    ``chunk``: the images a forward and backward takes at a time, so that
+    a large batch fits beside the card's other work; None takes the whole
+    batch at once."""
 
-    def __init__(self, cfg, states, device):
+    def __init__(self, cfg, states, device, chunk=None):
         self.cfg = cfg
         self.train = cfg["train"]
+        self.chunk = chunk
         mods = build_modules(cfg, device)
         for name, module in mods.items():
             module.load_state_dict(states[name], strict=True)
@@ -115,15 +119,53 @@ class ReferenceTrainer:
                     for k, v in self.t_ema.named_parameters()})
         return out
 
-    def step(self, z, noise, psi, lr_t, lr_ll):
+    def step(self, z, noise, psi, lr_t, lr_ll, around_first=None):
         """One iteration. Returns (the loss terms [p, tv, f] as floats,
-        the gradients {name: tensor} of the STN and the latent learner)."""
+        the gradients {name: tensor} of the STN and the latent learner).
+
+        The batch runs in chunks of ``self.chunk`` images: each chunk's
+        batch-mean terms are weighted by its share of the batch, the
+        gradients of the chunks are summed, and then one Adam step is
+        taken. ``around_first``: a context manager entered around the first
+        chunk's forward and backward (the counters of one card's share)."""
         tr = self.train
         for optim, lr in ((self.t_optim, lr_t), (self.ll_optim, lr_ll)):
             for group in optim.param_groups:
                 group["lr"] = float(lr)
         self.t_optim.zero_grad(set_to_none=True)
         self.ll_optim.zero_grad(set_to_none=True)
+        n = z.shape[0]
+        chunk = self.chunk or n
+        heads = self.t.cfg.num_heads
+        terms = torch.zeros(3, device=z.device)
+        for a in range(0, n, chunk):
+            b = min(a + chunk, n)
+            first, second = noise
+            part = ([x[a:b] for x in first],
+                    [x[a * heads:b * heads] for x in second])
+            with (around_first() if around_first and a == 0
+                  else contextlib.nullcontext()):
+                chunk_terms = self._losses(z[a:b], part, psi)
+                total = (chunk_terms[0] + tr["tv_weight"] * chunk_terms[1]
+                         + tr["flow_identity_weight"] * chunk_terms[2])
+                share = (b - a) / n
+                (share * total).backward()
+            terms += share * torch.stack(chunk_terms).detach()
+        grads = {f"t.{k}": p.grad.detach().clone()
+                 for k, p in self.t.named_parameters()}
+        grads.update({f"ll.{k}": p.grad.detach().clone()
+                      for k, p in self.ll.named_parameters()})
+        self.t_optim.step()
+        self.ll_optim.step()
+        with torch.no_grad():
+            for e, p in zip(self.t_ema.parameters(), self.t.parameters()):
+                e.mul_(EMA_ACCUM).add_(p, alpha=1.0 - EMA_ACCUM)
+        return [float(x) for x in terms], grads
+
+    def _losses(self, z, noise, psi):
+        """(perceptual, TV, flow-identity) terms, each a batch mean, of the
+        images ``z`` with their ``noise``."""
+        tr = self.train
         kw = dict(sample_from_full_res=tr["sample_from_full_res"],
                   padding_mode=tr["padding_mode"], noise=noise)
         heads = self.t.cfg.num_heads
@@ -134,19 +176,5 @@ class ReferenceTrainer:
         else:
             ploss, delta_flow = gangealing_loss(
                 self.g, self.t, self.ll, self.perceptual, z, psi, **kw)
-        tv = total_variation_loss(delta_flow)
-        fid = flow_identity_loss(delta_flow)
-        total = (ploss + tr["tv_weight"] * tv
-                 + tr["flow_identity_weight"] * fid)
-        total.backward()
-        grads = {f"t.{k}": p.grad.detach().clone()
-                 for k, p in self.t.named_parameters()}
-        grads.update({f"ll.{k}": p.grad.detach().clone()
-                      for k, p in self.ll.named_parameters()})
-        self.t_optim.step()
-        self.ll_optim.step()
-        with torch.no_grad():
-            for e, p in zip(self.t_ema.parameters(), self.t.parameters()):
-                e.mul_(EMA_ACCUM).add_(p, alpha=1.0 - EMA_ACCUM)
-        terms = [float(x.detach()) for x in (ploss, tv, fid)]
-        return terms, grads
+        return (ploss, total_variation_loss(delta_flow),
+                flow_identity_loss(delta_flow))

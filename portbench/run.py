@@ -10,7 +10,11 @@ warms every shape the traffic uses. With ``--trace 0`` the window runs the
 traffic's units for ``--seconds`` and the cell's end-to-end metrics are
 read from it; with ``--trace 1`` a profiled window of the traffic's
 ``trace_units`` units gives its per-layer metrics. Then the program's
-state is freed and the plain reference decides ``correct``.
+state is freed and the plain reference decides ``correct``. A cell over
+several cards (``portbench/drivers/train_ranks.py``) runs its rank 0 in
+this process; the per-layer metrics read rank 0's trace, the device's
+peak memory is the fullest card's and its busy seconds the cards' mean,
+and no rank may hold a forbidden module.
 """
 
 import time
@@ -194,7 +198,7 @@ def run(args, device, cell_files=None, compute_dtype="float32",
     if args.trace:
         from portbench.trace import Trace, profiled
         n = traffic["trace_units"]
-        events, span, taken = profiled(
+        events, span, taken = getattr(cell, "profiled", profiled)(
             lambda: [cell.run_unit() for _ in range(n)])
         print(f"trace: {n} units, {taken} window(s) taken", file=sys.stderr)
     else:
@@ -202,6 +206,9 @@ def run(args, device, cell_files=None, compute_dtype="float32",
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     cell.release()
+    # a cell over ranks: the other ranks' readings, gathered at release
+    peers = getattr(cell, "peers", [])
+    peak = max([peak] + [p["memory_peak_bytes"] for p in peers])
     numbers, notes, counters = cell.check(list(limits),
                                           count=bool(args.trace),
                                           readings=readings)
@@ -215,7 +222,9 @@ def run(args, device, cell_files=None, compute_dtype="float32",
         value = reader(m["name"])(observed)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    found = forbidden_modules()
+    found = forbidden_modules() + [
+        f"{m} (rank {r})" for r, p in enumerate(peers, 1)
+        for m in p["forbidden"]]
     if found:
         print(f"portbench: the process holds {found}", file=sys.stderr)
         return 3
@@ -228,7 +237,8 @@ def run(args, device, cell_files=None, compute_dtype="float32",
               "attempted": observed.units, "failed": 0 if correct else 1,
               "metrics": metrics, "device": device_info}
     if args.trace:
-        device_info.update(busy_s=observed.busy_s,
+        busy = [observed.busy_s] + [p["busy_s"] for p in peers]
+        device_info.update(busy_s=sum(busy) / len(busy),
                            window_s=observed.window_s)
         result["breakdown"] = observed.breakdown()
     if readings:

@@ -8,12 +8,12 @@ import pytest
 import torch
 
 from portbench import calibrate, faults, run
-from portbench.tests.conftest import SEED, tiny_files
+from portbench.tests.conftest import RANKS, SEED, cell_files, tiny_files
 
 CELLS = [w["name"] for w in run.read_json(run.ROOT / "BENCHMARK.json")
-         ["workloads"]]
+         ["workloads"]] + [RANKS]
 CASES = [(w, f) for w in CELLS
-         for f in faults.FAULTS[run.load_cell(w)[2]["kind"]]]
+         for f in faults.FAULTS[cell_files(w)[2]["kind"]]]
 
 
 def correct(workload, compute_dtype="float32", fault=None):

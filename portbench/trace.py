@@ -27,10 +27,13 @@ TOP = 10  # entries of each list of the breakdown
 GAPS_LABELLED = 400  # the longest idle gaps looked up on the host
 
 
-def profiled(run):
+def profiled(run, agree=None):
     """torch.profiler (CPU and CUDA activity) over ``run()``; returns the
     kineto events of the first window in which every kernel launch made
-    by ``run()`` has its kernel event, and how many windows were taken."""
+    by ``run()`` has its kernel event, and how many windows were taken.
+    ``agree(complete)``: over ranks that profile the same units, whether
+    every rank's window is complete, so that all take a window again
+    together."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     short = []
@@ -51,7 +54,10 @@ def profiled(run):
                     if not _on_device(e) and "LaunchKernel" in e.name()
                     and span and span[0] <= e.start_ns() <= span[1]]
         missed = [c for c in launches if c not in kernels]
-        if span and launches and not missed:
+        complete = bool(span and launches and not missed)
+        if agree is not None:
+            complete = agree(complete)
+        if complete:
             return events, span, taken
         short.append(f"kernels of {len(launches) - len(missed)} of "
                      f"{len(launches)} launches")
