@@ -25,12 +25,20 @@ Phases:
   2. each kernel against its plain version at the flagship shapes (N=8, C=3,
      256x256 source, 128x128 output) in the three padding modes, atol 1e-5;
   2a. the FIR kernel (fir_kernel): upfirdn2d forward and d/dx at the
-     congeal cell's first STN blur (50 x 64 x 128^2, pad 2) and the cats
-     step's largest G blur (40 x 128 x 257^2, gain 4, pad 1) against the
-     plain version (F.pad and ATen's depthwise conv, its autograd), to its
-     bits, timed beside it, its bytes bound and one grouped F.conv2d with
-     its padding; then one launch a Blur in a flagship congeal forward at
-     50. The main-path phases check its counts beside the samplers';
+     congeal cell's first STN blur (50 x 64 x 128^2, pad 2), the cats
+     step's largest G blur (40 x 128 x 257^2, gain 4, pad 1) and the 1024
+     px generator's two largest (20 x 64 x 513^2 and 20 x 32 x 1025^2,
+     gain 4, pad 1) against the plain version (F.pad and ATen's depthwise
+     conv, its autograd), to its bits, timed beside it, its bytes bound
+     and one grouped F.conv2d with its padding; then one launch a Blur in
+     a flagship congeal forward at 50. The main-path phases check its
+     counts beside the samplers';
+  2a'. K1 and K3 at ffhq.train.b20's warp (ffhq_samplers): a 1024 px
+     pyramid of 20 smooth images sampled at 128, levels from 0 to the
+     2.5 clamp, against the plain versions (KERNEL_TOL scaled) in the
+     three padding modes, timed on border padding beside them, their
+     bounds and F.grid_sample on the volume, and the pyramid's build
+     timed at 20 x 1024 px and 40 x 256 px;
   2b. the K3 tie phase (k3_ties): K3 and K1 at every pair of tie
      coordinates (texel centres and edges, the border clamp's ends, the
      reflection padding's mirror lines and one texel past them) at each
@@ -822,6 +830,21 @@ def splat_bound(coords, sigma, reads, outs):
     return bound(nbytes(coords, sigma, *reads, *outs), ops)
 
 
+def warp_grid(zooms, out, g):
+    """An (N, out, out, 2) grid: per image a similarity with zoom
+    ``zooms[n]``, a random rotation and a shift of up to 0.3, plus a random
+    smooth flow, all drawn from the generator ``g``."""
+    N, s = len(zooms), zooms
+    a = (torch.rand(N, generator=g) * 2 - 1) * 3.14159
+    t = (torch.rand(N, 2, generator=g) * 2 - 1) * 0.3
+    theta = torch.stack([
+        torch.stack([s * a.cos(), -s * a.sin(), t[:, 0]], 1),
+        torch.stack([s * a.sin(), s * a.cos(), t[:, 1]], 1)], 1)
+    flow = interpolate_bilinear(0.02 * torch.randn(N, 2, 16, 16, generator=g),
+                                out, out).permute(0, 2, 3, 1)
+    return (affine_grid(theta, (N, 3, out, out)) + flow).contiguous()
+
+
 def kernel_inputs(dev):
     """Flagship-shaped inputs: per image a similarity from a zoom-in by 0.3
     to a zoom-out by 4, with rotation and shift, plus a random smooth flow,
@@ -829,15 +852,7 @@ def kernel_inputs(dev):
     g = torch.Generator().manual_seed(0)
     N = 8
     img = torch.randn(N, 3, 256, 256, generator=g)
-    s = torch.logspace(-0.52, 0.6, N)  # 0.3 ... 4
-    a = (torch.rand(N, generator=g) * 2 - 1) * 3.14159
-    t = (torch.rand(N, 2, generator=g) * 2 - 1) * 0.3
-    theta = torch.stack([
-        torch.stack([s * a.cos(), -s * a.sin(), t[:, 0]], 1),
-        torch.stack([s * a.sin(), s * a.cos(), t[:, 1]], 1)], 1)
-    flow = interpolate_bilinear(0.02 * torch.randn(N, 2, 16, 16, generator=g),
-                                128, 128).permute(0, 2, 3, 1)
-    grid = (affine_grid(theta, (N, 3, 128, 128)) + flow).contiguous()
+    grid = warp_grid(torch.logspace(-0.52, 0.6, N), 128, g)  # 0.3 ... 4
     img, grid = img.to(dev), grid.to(dev)
     levels = mipmap_levels(grid, 256, 256, 3.5).contiguous()
     check(float(levels.min()) == 0.0 and float(levels.max()) == 2.5,
@@ -912,10 +927,14 @@ def kernels_vs_plain(dev):
 
 
 # The FIR kernel's smoke shapes: (N, C, side, gain, pad) of the congeal
-# cell's first STN blur (a ResBlock's conv path at 128 px) and of the cats
-# step's largest G blur (after the last transposed conv, 257 px).
+# cell's first STN blur (a ResBlock's conv path at 128 px), of the cats
+# step's largest G blur (after the last transposed conv, 257 px) and of
+# the 1024 px generator's two largest (ffhq.train.b20: the transposed
+# conv's 2 x 512 + 1 and 2 x 256 + 1 px planes of its last two blocks).
 FIR_SHAPES = {"congeal 128^2 x 64 x 50": (50, 64, 128, 1, (2, 2)),
-              "cats G 257^2 x 128 x 40": (40, 128, 257, 4, (1, 1))}
+              "cats G 257^2 x 128 x 40": (40, 128, 257, 4, (1, 1)),
+              "ffhq G 513^2 x 64 x 20": (20, 64, 513, 4, (1, 1)),
+              "ffhq G 1025^2 x 32 x 20": (20, 32, 1025, 4, (1, 1))}
 
 
 def fir_kernel(dev, card):
@@ -997,6 +1016,90 @@ def fir_kernel(dev, card):
     check(calls == {"upfirdn2d": blurs, "upfirdn2d_dx": 0},
           f"the congeal forward launched {calls}, expected {blurs} forwards")
     return rows, err
+
+
+# ffhq.train.b20's warps: (N, image side, output side) of 20 fakes of the
+# 1024 px generator sampled at flow_size 128, where most points' levels
+# pass max_num_levels 3.5's clamp (2.5)
+FFHQ_WARP = (20, 1024, 128)
+
+
+def ffhq_samplers(dev, card):
+    """K1 and K3 on a 1024 px pyramid sampled at 128 (FFHQ_WARP): per image
+    a similarity from a zoom-in by 0.15 to a zoom-out by 2, with rotation
+    and shift, plus a smooth flow, so that the levels run from 0 to the
+    2.5 clamp (half the points at it) and some points leave the image;
+    smooth images (tanh of 64 x 64 noise upsampled). Each held against its
+    plain version in the three padding modes, then timed on the cell's
+    border padding beside its plain version, its bound and F.grid_sample
+    on the volume; the pyramid's build timed beside them, and at the cats
+    step's 40 x 256 px. Returns the errors and {name: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)}."""
+    N, side, out = FFHQ_WARP
+    g = torch.Generator().manual_seed(22)
+    low = torch.randn(N, 3, 64, 64, generator=g)
+    img = torch.tanh(2 * interpolate_bilinear(low, side, side)).to(dev)
+    zooms = torch.logspace(-0.82, 0.3, N)  # 0.15 ... 2
+    grid = warp_grid(zooms, out, g).to(dev)
+    levels = mipmap_levels(grid, side, side, 3.5).contiguous()
+    clamped = float((levels == 2.5).float().mean())
+    check(float(levels.min()) == 0.0 and float(levels.max()) == 2.5
+          and 0.0 < clamped < 1.0, "ffhq sampler inputs: levels do not run "
+          "from 0 to the clamp")
+    check(bool((grid.abs() > 1).any()), "ffhq sampler inputs: no point "
+          "leaves the image")
+    pyramid = _build_pyramid(img, 4)
+    dout = torch.randn(N, 3, out, out, device=dev,
+                       generator=torch.Generator(dev).manual_seed(23))
+    errs, rows = {}, {}
+    for pm in PADDINGS:
+        with torch.no_grad():
+            hold("mipmap_sample", [(mipmap_sample(pyramid, grid, levels, pm),
+                                    _sample_pyramid(pyramid, grid, levels,
+                                                    pm))], errs)
+        args = (pyramid, grid, levels, dout, pm)
+        calls = [(args, mipmap_ops.mipmap_sample_dcoords(*args))]
+        hold("mipmap_sample_dcoords", backward_pairs(calls, k3_graph), errs,
+             k3_where(calls))
+    with torch.inference_mode():
+        k1 = mipmap_sample(pyramid, grid, levels)
+        ms = device_ms(lambda: mipmap_sample(pyramid, grid, levels))
+        plain_ms = device_ms(lambda: _sample_pyramid(pyramid, grid, levels,
+                                                     "border"))
+        volume = as_volume(_rebuild_stack(pyramid))
+        grid3 = volume_grid(grid, levels, pyramid.shape.num_levels)
+        lib_ms = device_ms(lambda: F.grid_sample(
+            volume, grid3, mode="bilinear", padding_mode="border",
+            align_corners=False))
+        del volume, grid3
+        b = bound(pyramid_texel_bytes(img.shape, grid, levels)
+                  + nbytes(grid, levels, k1),
+                  sampler_ops("mipmap_sample", levels.numel(), 3))
+        build_ms = device_ms(lambda: _build_pyramid(img, 4))
+        cats = torch.rand(TRAIN_BATCH, 3, 256, 256, device=dev)
+        cats_build_ms = device_ms(lambda: _build_pyramid(cats, 4))
+    rows["mipmap_sample"] = (ms, plain_ms, *b, lib_ms)
+    calls = [((pyramid, grid, levels, dout, "border"),
+              mipmap_ops.mipmap_sample_dcoords(pyramid, grid, levels, dout))]
+    rows["mipmap_sample_dcoords"] = backward_times(
+        calls, k3_graph, mipmap_ops.mipmap_sample_dcoords)
+    print(f"K1 and K3 on a {side} px pyramid of {N} images sampled at "
+          f"{out}, levels 0-2.5 ({clamped:.1%} of "
+          f"the points at the clamp), held against the plain versions in "
+          f"{len(PADDINGS)} padding modes: max abs err K1 "
+          f"{errs['mipmap_sample']:.3e}, K3 "
+          f"{errs['mipmap_sample_dcoords']:.3e} [{card}]")
+    for name, row in rows.items():
+        print(f"{name} at ffhq.train.b20's warp ({N} x {side} px -> {out}, "
+              f"border), per launch: kernel {row[0]:.4f} ms, plain "
+              f"{row[1]:.4f} ms, bound {row[2]:.4f} ms ({row[3]}), "
+              f"F.grid_sample on the volume {row[4]:.4f} ms [{card}]")
+    print(f"the pyramid's build (4 levels), kernels' device time: {N} x "
+          f"{side} px {build_ms:.4f} ms, {TRAIN_BATCH} x 256 px "
+          f"{cats_build_ms:.4f} ms [{card}]")
+    del img, pyramid, dout, k1, cats
+    torch.cuda.empty_cache()
+    return errs, rows
 
 
 def make_checkpoint(path):
@@ -5925,6 +6028,7 @@ def main():
     reals = real_lmdb(os.path.join(reals_dir, "reals"))
     errs, times, bounds, library = kernels_vs_plain(dev)
     fir_rows, fir_err = fir_kernel(dev, card)
+    ffhq_errs, ffhq_rows = ffhq_samplers(dev, card)
     tie_errs = k3_ties(dev)
     rates, peak_gib, launches, path_err, k1_path = serve(dev, card)
     errs = {k: max(errs[k], path_err[k]) for k in errs}
@@ -5953,6 +6057,7 @@ def main():
                  + list(cluster_errs.items())
                  + list(vis_errs.items()) + list(bf16_errs.items())
                  + list(tie_errs.items()) + list(syn_errs.items())
+                 + list(ffhq_errs.items())
                  + list(scan_errs.items())):
         errs[k] = max(errs.get(k, 0.0), v)
     for b in BATCHES:
@@ -6044,9 +6149,16 @@ def main():
               f"{row[2]:.4f} ms ({row[3]}); {k} launched {launches[k]} times "
               f"on the main path, {check_launches[k]} in the side checks "
               f"[{card}]")
+    for name, row in ffhq_rows.items():
+        print(f"{name} at ffhq.train.b20's warp, per launch: kernel "
+              f"{row[0]:.4f} ms, plain {row[1]:.4f} ms, bound {row[2]:.4f} "
+              f"ms ({row[3]}), F.grid_sample on the volume {row[4]:.4f} ms "
+              f"[{card}]")
     for k, (ms, _, bound_ms, *_) in list(measured.items()) + [
             (f"{k} at the cars step's shapes", v)
-            for k, v in cars_rows.items()] + list(fir_rows.items()):
+            for k, v in cars_rows.items()] + [
+            (f"{k} at ffhq.train.b20's warp", v)
+            for k, v in ffhq_rows.items()] + list(fir_rows.items()):
         check(ms >= bound_ms, f"{k} took {ms:.4f} ms, under its bound of "
               f"{bound_ms:.4f} ms: a timing fault")
     print(f"torch.profiler: {WINDOWS['taken']} windows, "

@@ -19,6 +19,7 @@ from torch import nn
 from gangealing_torch.models.layers import (
     ConstantInput, EqualLinear, StyledConv, ToRGB, cast_to, pixel_norm,
     randn)
+from gangealing_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -154,11 +155,20 @@ class Generator(nn.Module):
         out = self.conv1(cast_to(self.input(N), compute_dtype), latent[:, 0],
                          noise=noise[0])
         skip = self.to_rgb1(out, latent[:, 1])
-        i = 1
-        for b, to_rgb in enumerate(self.to_rgbs):
-            out = self.convs[2 * b](out, latent[:, i], noise=noise[1 + 2 * b])
-            out = self.convs[2 * b + 1](out, latent[:, i + 1],
-                                        noise=noise[2 + 2 * b])
-            skip = to_rgb(out, latent[:, i + 2], skip)
-            i += 2
+        # the last two blocks, the widest planes, under a span of their own
+        top = max(0, len(self.to_rgbs) - 2)
+        for b in range(top):
+            out, skip = self._block(b, out, skip, latent, noise)
+        with span("generator.top"):
+            for b in range(top, len(self.to_rgbs)):
+                out, skip = self._block(b, out, skip, latent, noise)
         return skip, (latent if return_latents else None)
+
+    def _block(self, b, out, skip, latent, noise):
+        """Synthesis block ``b``: its upsampling and its plain StyledConv,
+        then its ToRGB added to the upsampled skip."""
+        i = 1 + 2 * b
+        out = self.convs[2 * b](out, latent[:, i], noise=noise[1 + 2 * b])
+        out = self.convs[2 * b + 1](out, latent[:, i + 1],
+                                    noise=noise[2 + 2 * b])
+        return out, self.to_rgbs[b](out, latent[:, i + 2], skip)

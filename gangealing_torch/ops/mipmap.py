@@ -29,6 +29,7 @@ from gangealing_torch import _build
 from gangealing_torch.ops.grid_sample import (
     _check_dout, _check_grid, grid_sample, jabs, jclip, jmax)
 from gangealing_torch.ops.resample import interpolate_bilinear
+from gangealing_torch.utils.profiling import span
 
 
 def _gaussian_blur_2x(x):
@@ -363,8 +364,7 @@ def mipmap_warp(inputs, grid, max_num_levels=3.5, padding_mode="border"):
 
     inputs: (N, C, H, W); grid: (N, Ho, Wo, 2) normalized to [-1, 1].
     A CPU tensor takes the plain ``_mipmap_warp_fold``; a CUDA tensor
-    builds the native-resolution pyramid and samples it through
-    ``MipmapSample``, which launches the kernels or raises.
+    takes ``_pyramid_warp``.
     """
     N, C, H, W = inputs.shape
     num_levels = int(math.ceil(max_num_levels - 1.0)) + 1
@@ -374,7 +374,15 @@ def mipmap_warp(inputs, grid, max_num_levels=3.5, padding_mode="border"):
     if inputs.device.type == "cpu":
         return _mipmap_warp_fold(inputs, grid, num_levels, levels,
                                  padding_mode)
-    level0, coarse, shape = _build_pyramid(inputs, num_levels)
+    return _pyramid_warp(inputs, grid, num_levels, levels, padding_mode)
+
+
+def _pyramid_warp(inputs, grid, num_levels, levels, padding_mode):
+    """The card's warp: build the native-resolution pyramid (under the
+    span ``stn.pyramid``) and sample it through ``MipmapSample``, which
+    launches the kernels or raises."""
+    with span("stn.pyramid"):
+        level0, coarse, shape = _build_pyramid(inputs, num_levels)
     return MipmapSample.apply(level0, coarse, shape, grid.contiguous(),
                               levels.contiguous(), padding_mode
                               ).to(inputs.dtype)

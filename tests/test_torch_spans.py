@@ -8,11 +8,17 @@ with 2 heads and flips) records its stages as one tree rooted at
 ``user_annotation`` (which kineto would copy onto the device's timeline);
 only spans inside a root take timing events, which the record reuses; the
 record keeps at most ``RECORD_CAP`` spans; a step's losses and parameters
-are the same to the bit with the profiler on and off.
+are the same to the bit with the profiler on and off. The generator's
+last two synthesis blocks open ``generator.top`` once a pass, and the
+card's pyramid build ``stn.pyramid`` once a warp (on the CPU the card's
+path runs with a plain stand-in for its kernels; the CPU's own warp opens
+none); with no profiler on neither records a span or makes a timing
+event; the benchmark's readers of the two spans read nothing from a
+program that lacks them.
 
 On the card (marker ``cuda``): a profiled congeal forward puts no span
-on the device's timeline, and each stage's device-clock ms is positive
-and inside the forward's.
+on the device's timeline, opens ``stn.pyramid`` inside each warp, and
+each stage's device-clock ms is positive and inside the forward's.
 """
 
 import collections
@@ -20,6 +26,7 @@ import os
 import sys
 import threading
 import time
+import types
 
 import pytest
 import torch
@@ -28,6 +35,7 @@ from gangealing_torch.models import latent_learner as tll
 from gangealing_torch.models import lpips as tlp
 from gangealing_torch.models import stn as tstn
 from gangealing_torch.models import stylegan2 as tg
+from gangealing_torch.ops import mipmap as tmipmap
 from gangealing_torch.train import state as tstate
 from gangealing_torch.utils import profiling
 from gangealing_torch.utils.profiling import span, unit_spans
@@ -43,6 +51,7 @@ CONFIGS = {"unimodal": dict(num_heads=1, flips=False),
            "two heads, flips": dict(num_heads=2, flips=True)}
 # spans a step holds, and each one's parent
 STEP = {"train.step": (1, None), "train.generator": (2, "train.step"),
+        "generator.top": (2, "train.generator"),
         "stn.composed": (1, "train.step"),
         "stn.features": (2, "stn.composed"),
         "stn.sample": (2, "stn.composed"),
@@ -286,6 +295,135 @@ def test_step_is_the_same_with_the_profiler_on():
         assert torch.equal(v, after_on[k]), k
 
 
+def open_spans():
+    """The names of the spans this thread has open."""
+    return [s.name for s in getattr(profiling._LOCAL, "stack", [])]
+
+
+def test_generator_top_holds_the_last_two_blocks():
+    """One ``generator.top`` a generator pass, around both StyledConvs and
+    the ToRGB of each of the last two synthesis blocks, and around no
+    layer before them."""
+    step = Step(**CONFIGS["unimodal"])
+    g = step.generator
+    layers = ([("conv1", g.conv1), ("to_rgb1", g.to_rgb1)] +
+              [(f"convs.{i}", m) for i, m in enumerate(g.convs)] +
+              [(f"to_rgbs.{i}", m) for i, m in enumerate(g.to_rgbs)])
+    seen = []
+    for name, m in layers:
+        m.register_forward_pre_hook(
+            lambda mod, args, name=name:
+            seen.append((name, "generator.top" in open_spans())))
+
+    def two_passes():
+        with span("test.root"), torch.no_grad():
+            g([step.z])
+            g([step.z])
+    profiled_events(two_passes)
+    (unit,) = unit_spans("test.root", 1)
+    assert [(s.name, s.parent) for s in unit] == [
+        ("test.root", None), ("generator.top", "test.root"),
+        ("generator.top", "test.root")]
+    n = len(g.to_rgbs)
+    top = {f"convs.{i}" for i in range(2 * n - 4, 2 * n)} | \
+        {f"to_rgbs.{n - 2}", f"to_rgbs.{n - 1}"}
+    assert len(top) == 6 and len(seen) == 2 * len(layers)
+    assert collections.Counter(name for name, inside in seen if inside) \
+        == {name: 2 for name in top}
+
+
+class PlainSample:
+    """A stand-in for the card's ``MipmapSample``: K1's plain version."""
+
+    @staticmethod
+    def apply(level0, coarse, shape, grid, levels, padding_mode):
+        return tmipmap._sample_pyramid(
+            tmipmap.Pyramid(level0, coarse, shape), grid, levels,
+            padding_mode)
+
+
+def warp_inputs():
+    gen = torch.Generator().manual_seed(0)
+    img = torch.rand(2, 3, 64, 64, generator=gen)
+    grid = torch.rand(2, 16, 16, 2, generator=gen) * 2 - 1
+    levels = tmipmap.jmax(tmipmap.mipmap_levels(grid, 64, 64, 3.5), 0.0)
+    return img, grid, levels
+
+
+def test_pyramid_opens_once_a_warp_on_the_card_path(monkeypatch):
+    """The card's warp builds its pyramid inside one ``stn.pyramid``; the
+    CPU's warp (the plain fold, which builds no pyramid) opens none. With
+    the kernels' plain stand-in the card's path gives the CPU's image."""
+    monkeypatch.setattr(tmipmap, "MipmapSample", PlainSample)
+    img, grid, levels = warp_inputs()
+
+    def warps():
+        with span("test.root"):
+            with span("stn.sample"):
+                card = tmipmap._pyramid_warp(img, grid, 4, levels, "border")
+            with span("stn.sample"):
+                cpu = tmipmap.mipmap_warp(img, grid)
+        return card, cpu
+    (card, cpu), _ = profiled_events(warps)
+    (unit,) = unit_spans("test.root", 1)
+    assert collections.Counter(s.name for s in unit) == \
+        {"test.root": 1, "stn.sample": 2, "stn.pyramid": 1}
+    assert [s.parent for s in unit if s.name == "stn.pyramid"] == \
+        ["stn.sample"]
+    torch.testing.assert_close(card, cpu)
+
+
+def test_new_spans_make_no_event_without_a_profiler(monkeypatch):
+    """With no profiler on, a generator pass and the card's warp record no
+    span and make no timing event: neither span adds a launch."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(FakeEvent, "made", 0)
+    monkeypatch.setattr(tmipmap, "MipmapSample", PlainSample)
+    step = Step(**CONFIGS["unimodal"])
+    img, grid, levels = warp_inputs()
+    with torch.no_grad():
+        step.generator([step.z])
+    tmipmap._pyramid_warp(img, grid, 4, levels, "border")
+    assert FakeEvent.made == 0
+    assert len(profiling._RECORD) == 0
+
+
+# the benchmark's readers of the two spans: (root, stage) each
+NEW_READERS = {"g_top_ms.train": ("train.step", "generator.top"),
+               "pyramid_ms.train": ("train.step", "stn.pyramid"),
+               "pyramid_ms.congeal": ("stn.composed", "stn.pyramid")}
+
+
+@pytest.mark.parametrize("name", NEW_READERS)
+def test_new_readers_read_nothing_without_their_spans(name, monkeypatch):
+    """A program whose units hold the older stages but not this one (the
+    program before these spans), or no stage spans at all, reads None;
+    with the span, the median unit's sum."""
+    from portbench import run
+    root, stage = NEW_READERS[name]
+    read = run.reader(name)
+    older = [profiling.SpanTime(root, None, None),
+             profiling.SpanTime("stn.sample", root, 3.0)]
+    asked = []
+
+    def spans_of(units):
+        def unit_spans(r, n):
+            asked.append(r)
+            return [units] * n
+        return unit_spans
+    trace = types.SimpleNamespace(units=2)
+    monkeypatch.setattr(profiling, "unit_spans", spans_of(older))
+    assert read(trace) is None
+    newer = older + [profiling.SpanTime(stage, "stn.sample", 1.5),
+                     profiling.SpanTime(stage, "stn.sample", 2.0)]
+    monkeypatch.setattr(profiling, "unit_spans", spans_of(newer))
+    assert read(trace) == pytest.approx(3.5)
+    assert asked == [root, root]
+    monkeypatch.delattr(profiling, "unit_spans")
+    assert read(trace) is None
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -318,7 +456,10 @@ def test_congeal_spans_stay_off_the_device_timeline(card):
     assert not [e.name() for e in on_device if e.name() in names]
     (unit,) = unit_spans("stn.composed", 1)
     assert collections.Counter(s.name for s in unit) == \
-        {"stn.composed": 1, "stn.features": 2, "stn.sample": 2}
+        {"stn.composed": 1, "stn.features": 2, "stn.sample": 2,
+         "stn.pyramid": 2}
+    assert all(s.parent == "stn.sample" for s in unit
+               if s.name == "stn.pyramid")
     assert unit[0].device_ms is None  # a root takes no events
     for s in unit[1:]:
         assert s.device_ms is not None and s.device_ms > 0, s
